@@ -33,7 +33,7 @@ def main():
     ap.add_argument("--preview", type=int, default=None, metavar="PORT",
                     help="serve a live MJPEG view of the annotated frames "
                     "(the reference's imshow window) at http://host:PORT/")
-    ap.add_argument("--cpu", action="store_true", help="force the CPU backend")
+    ap.add_argument("--cpu", action="store_true", help="run on the CPU backend instead of the GPU")
     args = ap.parse_args()
     if args.cpu:
         import jax

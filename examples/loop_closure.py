@@ -54,7 +54,8 @@ def render_loop_frames(n_frames, h=320, w=416, focal=400.0, seed=11):
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--frames", type=int, default=12)
-    ap.add_argument("--cpu", action="store_true")
+    ap.add_argument("--cpu", action="store_true",
+                    help="run on the CPU backend instead of the GPU")
     args = ap.parse_args()
     if args.cpu:
         import jax

@@ -44,7 +44,7 @@ def main() -> int:
         help="non-interactive command string, e.g. 'ffbf' (f=forward, "
         "b=back, q=quit); omit for interactive stdin stepping",
     )
-    ap.add_argument("--cpu", action="store_true", help="force the CPU backend")
+    ap.add_argument("--cpu", action="store_true", help="run on the CPU backend instead of the GPU")
     args = ap.parse_args()
 
     import jax

@@ -49,7 +49,7 @@ def main():
     ap.add_argument("--frames", type=int, default=4)
     ap.add_argument("--focal", type=float, default=None)
     ap.add_argument("--out", default=None)
-    ap.add_argument("--cpu", action="store_true", help="force the CPU backend")
+    ap.add_argument("--cpu", action="store_true", help="run on the CPU backend instead of the GPU")
     args = ap.parse_args()
     if args.cpu:
         import jax

@@ -55,7 +55,8 @@ def view(base, depth, xs, ys, focal, cx_w, cy_w):
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--cpu", action="store_true")
+    ap.add_argument("--cpu", action="store_true",
+                    help="run on the CPU backend instead of the GPU")
     ap.add_argument("--frames", type=int, default=10)
     ap.add_argument("--baseline", type=float, default=0.3)
     args = ap.parse_args()

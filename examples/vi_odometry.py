@@ -46,7 +46,8 @@ def main():
     ap.add_argument("--bias-drift", action="store_true",
                     help="let the gyro bias WALK over the log and compare "
                     "frozen-bias vs bias-state (15-DOF) refinement")
-    ap.add_argument("--cpu", action="store_true")
+    ap.add_argument("--cpu", action="store_true",
+                    help="run on the CPU backend instead of the GPU")
     args = ap.parse_args()
     if args.cpu:
         os.environ["JAX_PLATFORMS"] = "cpu"

@@ -1,20 +1,21 @@
-"""optical_flow_tpu — a TPU-native dense optical-flow and visual-tracking engine.
+"""optical_flow_tpu — a dense optical-flow and visual-tracking engine on JAX/XLA.
 
-A from-scratch JAX/XLA/Pallas framework with the capabilities of the reference
+A from-scratch JAX/XLA framework with the capabilities of the reference
 C++/OpenCV/OpenMP project `mileslindheimer/optical-flow` (pyramidal dense
-Lucas–Kanade optical flow + video gesture tracking), redesigned TPU-first:
+Lucas–Kanade optical flow + video gesture tracking), redesigned for an
+accelerator (an NVIDIA GPU):
 
 - pure functional ops with OpenCV-faithful numerics (reference parity to the
   golden flow fields U2Test/V2Test and UPyrTest/VPyrTest),
-- fused Pallas kernels for the hot path (gradients -> products -> window sums
-  -> 2x2 Cramer solve in a single VMEM pass),
-- multi-chip scaling via `shard_map` over a `jax.sharding.Mesh` with
+- one plain-JAX path per stage, fused by XLA (gradients -> products ->
+  window sums -> 2x2 Cramer solve), the same on every backend,
+- multi-device scaling via `shard_map` over a `jax.sharding.Mesh` with
   `ppermute` halo exchange (rows/cols tiling) instead of OpenMP threads,
 - a frame-parallel video pipeline (preprocess -> pyramidal flow -> gesture)
   with native (C++/libav) decode.
 
 Layer map (mirrors SURVEY.md section 1):
-  L0  ops/            dense-array backend (jnp/XLA; Pallas in kernels/)
+  L0  ops/            dense-array backend (jnp/XLA)
   L1  ops/gradients, ops/window   flow kernels (fx/fy/ft, 3x3 window sums)
   L2  flow/lk.py      single-level dense LK solver
   L3  flow/coarse_to_fine.py      pyramid controller

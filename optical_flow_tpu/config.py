@@ -26,9 +26,6 @@ class FlowConfig:
     # Quantize warp-map fractions to 1/32 like OpenCV remap's fixed-point
     # interpolation tables (needed for golden parity; see ops/warp.py).
     quantize_warp: bool = True
-    # 'jnp' = pure-XLA path (parity oracle), 'pallas' = fused TPU kernel,
-    # 'auto' = pallas on TPU, jnp elsewhere.
-    impl: str = "auto"
     # Clamp per-level flow used for warping (needed to bound halo width when
     # spatially sharded; None = unbounded, faithful to the reference).
     warp_clamp: Optional[float] = None
@@ -38,27 +35,12 @@ class FlowConfig:
     # improving accuracy for large motions — REQUIRES mode='corrected'
     # (reference-mode flow is not displacement, so re-warping diverges).
     level_iters: int = 1
-    # Warp implementation: 'gather' = exact unbounded remap (XLA gather —
-    # catastrophically slow on TPU: ~7.7 ms per tap plane at 1080^2);
-    # 'shift' = gather-free static-shift decomposition, REQUIRES warp_clamp
-    # (cost grows with clamp^2, ~1 ulp from gather); 'auto' = shift on TPU
-    # whenever warp_clamp is set, else gather.
+    # Warp implementation: 'gather' = exact unbounded remap (four
+    # bilinear gathers); 'shift_sep' = separable static-shift form,
+    # REQUIRES warp_clamp (O(clamp), flow-space 1/32 px quantization,
+    # ops/warp.py); 'auto' = shift_sep when warp_clamp is set, else
+    # gather (flow/coarse_to_fine.py resolve_warp_impl).
     warp_impl: str = "auto"
-    # Pyramid-build implementation (ops/pyramid.pyr_down): 'poly' = the
-    # bit-pinned polyphase VPU path (default); 'mxu' = the column
-    # decimation as one banded matmul on the otherwise-idle MXU.
-    # Measured on v5e (scripts/tpu_pyrdown_experiments.py + batch A/B):
-    # 'mxu' wins ~10% at batch<=2 (192.7 vs 212.9 us, 4-level 1080^2
-    # pair) but is a wash at the streaming video batch (485 us both at
-    # batch 5). 'pallas' = the fused band kernel (both passes in one
-    # VMEM visit, kernels/pyrdown_kernel.py): ~14% faster than poly
-    # standalone (157 vs 182 us/pair at 1080^2). Round 3 measured the
-    # full streaming chain a wash; under the round-4 band layout 'pallas'
-    # wins ~7% end to end (590 -> 549 us/pair, device spans), so the
-    # production presets use 'auto' = pallas on TPU, poly elsewhere.
-    # 'poly' stays the dataclass default: parity contracts (goldens,
-    # sharded-vs-unsharded bit-identity) are pinned on it.
-    pyr_impl: str = "poly"
     # 'reference': the reference's exact coarse-to-fine scheme (flow NOT
     #   doubled on pyrUp — its output is the goldens' quirky quantity, not
     #   pixel displacement).
@@ -85,7 +67,7 @@ class PreprocessConfig:
     morph_iterations: int = 2
     # True: reproduce the reference's uint8 saturating arithmetic for the
     # blur/gray/diff/threshold chain; False: do everything in float32 (faster
-    # on TPU, visually identical).
+    # on the device, visually identical).
     faithful_uint8: bool = True
 
 
@@ -107,24 +89,22 @@ class VideoConfig:
 
     @classmethod
     def fast(cls, size=(1080, 1080)) -> "VideoConfig":
-        """Production-throughput preset: displacement-true pyramid with the
-        gather-free clamped warp (~160x faster than the parity config on
-        TPU) and batch-friendly state. Flow magnitudes are displacement
+        """Production-throughput preset: displacement-true pyramid with a
+        clamped separable shift warp and batch-friendly state.
+        Flow magnitudes are displacement
         (not the reference's inflated quantity); gesture vote counts on the
         demo video are comparable at default thresholds, but deployments
         should calibrate GestureConfig against their own footage."""
         return cls(
             preprocess=PreprocessConfig(size=size, faithful_uint8=False),
-            flow=FlowConfig(
-                mode="corrected", warp_clamp=8.0, warp_impl="auto",
-                pyr_impl="auto",
-            ),
+            flow=FlowConfig(mode="corrected", warp_clamp=8.0, warp_impl="auto"),
             faithful_prev_diff=False,
         )
     # Reference quirk: coarseToFineEstimation warps its inputs in place
     # (pyramid level 0 aliases them, LKof.cpp:193-226), and the video loop
     # then keeps the *warped* diff as prevDiff (ParallelVideoPyr.cpp:841).
-    # True reproduces that; False keeps the unwarped diff.
+    # True reproduces that, and warp_impl='auto' then resolves to the exact
+    # gather (pipeline/video.py); False keeps the unwarped diff.
     faithful_prev_diff: bool = True
     # Frames processed together as a batch (frame-level data parallelism).
     batch: int = 1
@@ -135,9 +115,10 @@ class MeshConfig:
     """Device-mesh layout for spatial tiling + frame parallelism.
 
     The reference's parallelism is OpenMP threads in one process
-    (SURVEY.md section 2.3); the TPU-native equivalents are:
-      - rows/cols: spatial tiling of the image across chips, halo exchange
-        via ppermute over ICI (replaces shared-memory stencil reads),
+    (SURVEY.md section 2.3); the multi-device equivalents are:
+      - rows/cols: spatial tiling of the image across devices, halo
+        exchange via ppermute between neighbouring tiles (replaces
+        shared-memory stencil reads),
       - frames: data parallelism over time (batch of frame pairs).
     """
 

@@ -37,35 +37,26 @@ from optical_flow_tpu.ops.warp import symmetric_warp
 
 
 def resolve_warp_impl(config: FlowConfig):
-    """(impl, max_disp) for symmetric_warp from a FlowConfig.
+    """(impl, max_disp) for symmetric_warp from a FlowConfig — the one
+    place a warp form is chosen, the same on every backend.
 
-    'shift' needs a bounded displacement: half the clamped flow, +1 for
-    fixed-point rounding slack.
+    'auto' is the separable shift warp when the flow is clamped (on one
+    H100 it beat the gather warp in the fast preset at 1080^2, see
+    scripts/path_timings.py) and the exact gather otherwise. shift_sep
+    reaches half the clamped flow; flow-space quantization keeps
+    |d| <= clamp/2 exactly, so no rounding slack is needed
+    (ops/warp.py quantize_disp).
     """
-    import jax
-
     impl = config.warp_impl
     if impl == "auto":
-        # shift_sep: O(clamp) separable decomposition — measured equal EPE
-        # to the exact form (flow fields are window-averaged smooth, and
-        # the pyramid's residual solves absorb the tiny separability
-        # error); 2.33 -> 0.57 ms/frame at 1080^2 vs the exact 'shift'.
-        impl = (
-            "shift_sep"
-            if (config.warp_clamp is not None and jax.default_backend() == "tpu")
-            else "gather"
-        )
-    if impl in ("shift", "shift_sep"):
+        impl = "shift_sep" if config.warp_clamp is not None else "gather"
+    if impl == "shift_sep":
         if config.warp_clamp is None:
             raise ValueError(f"warp_impl={impl!r} requires warp_clamp (bounded reach)")
-        if impl == "shift_sep":
-            # flow-space quantization keeps |d| <= clamp/2 exactly — no
-            # fixed-point rounding slack needed (ops/warp.py quantize_disp)
-            return impl, int(-(-config.warp_clamp // 2))
-        return impl, int(-(-config.warp_clamp // 2)) + 1
+        return impl, int(-(-config.warp_clamp // 2))
     if impl != "gather":
         raise ValueError(
-            f"warp_impl must be 'gather', 'shift', 'shift_sep' or 'auto', got {impl!r}"
+            f"warp_impl must be 'gather', 'shift_sep' or 'auto', got {impl!r}"
         )
     return "gather", 0
 
@@ -86,87 +77,11 @@ def _validate_levels(levels: Optional[int], shape, config: FlowConfig) -> int:
     return levels
 
 
-def _resolve_warp_solve(config: FlowConfig, warp_impl: str, max_disp: int, solve, warp):
-    """Fused warp+LK callable for run_pyramid, or None.
-
-    Applies on the TPU production path only: pallas LK + the separable
-    quantized shift warp with a clamp (the fused kernel implements exactly
-    that composition; kernels/warp_lk_kernel.py). Shapes the band kernel
-    can't tile fall back to the unfused pair per level.
-    """
-    from optical_flow_tpu.flow.lk import _use_pallas
-
-    if not (
-        _use_pallas(config.impl)
-        and warp_impl == "shift_sep"
-        and config.quantize_warp
-        and config.warp_clamp is not None
-    ):
-        return None
-    from optical_flow_tpu.kernels.warp_lk_kernel import warp_lk_band, warp_lk_pallas
-
-    clamp = float(config.warp_clamp)
-
-    def warp_solve(i, a, b, wu, wv):
-        # (wu, wv) arrive already clamped/negated by the loop; the kernel's
-        # own clip is idempotent on them, so negate=False + same clamp
-        # reproduces the unfused composition bit-for-bit.
-        if warp_lk_band(a.shape[-2], a.shape[-1], max_disp) is None:
-            w1, w2 = warp(i, a, b, wu, wv)
-            return solve(i, w1, w2)
-        return warp_lk_pallas(a, b, wu, wv, max_disp=max_disp, clamp=clamp, negate=False)
-
-    return warp_solve
-
-
-def _resolve_level_step(config: FlowConfig, warp_impl: str, max_disp: int, warp_solve):
-    """Fully-fused inter-level callable for run_pyramid, or None.
-
-    Corrected-mode production path only: one Pallas call computes
-    upsample+double+clamp+negate+warp+LK+accumulate per level
-    (kernels/warp_lk_kernel.py::pyrup_warp_lk_pallas) — the XLA-side
-    pyr_up interleave relayouts disappear. Shapes the kernel can't tile
-    fall back to the unfused upsample + (possibly fused) warp+solve with
-    identical arithmetic to the loop's own inter-level path.
-    """
-    if warp_solve is None or config.mode != "corrected":
-        return None
-    from optical_flow_tpu.kernels.warp_lk_kernel import (
-        pyrup_warp_lk_pallas,
-        warp_lk_band,
-    )
-    from optical_flow_tpu.ops.pyramid import pyr_up_cols_first
-
-    clamp = float(config.warp_clamp)
-
-    def level_step(i, a, b, uc, vc):
-        H, W = a.shape[-2], a.shape[-1]
-        if (
-            warp_lk_band(H, W, max_disp, pyrup=True) is not None
-            and H % 2 == 0
-            and W % 2 == 0
-            and uc.shape[-2] * 2 == H
-            and uc.shape[-1] * 2 == W
-        ):
-            return pyrup_warp_lk_pallas(
-                a, b, uc, vc, max_disp=max_disp, clamp=clamp
-            )
-        upu = 2.0 * pyr_up_cols_first(uc)
-        upv = 2.0 * pyr_up_cols_first(vc)
-        wu = -jnp.clip(upu, -clamp, clamp)
-        wv = -jnp.clip(upv, -clamp, clamp)
-        du, dv = warp_solve(i, a, b, wu, wv)
-        return du + upu, dv + upv
-
-    return level_step
-
-
 def coarse_to_fine_pyramids(
     pyr1,
     pyr2,
     *,
     config: FlowConfig = FlowConfig(),
-    _need_images: bool = False,
 ) -> Tuple[jnp.ndarray, jnp.ndarray, jnp.ndarray, jnp.ndarray]:
     """Pyramidal LK over PREBUILT Gaussian pyramids (lists/tuples, level 0
     finest). Streaming video reuses each frame's pyramid for two
@@ -178,7 +93,7 @@ def coarse_to_fine_pyramids(
         raise ValueError(f"pyramid depths differ: {len(pyr1)} vs {len(pyr2)}")
 
     def solve(_i, a, b):
-        return lucas_kanade(a, b, impl=config.impl)
+        return lucas_kanade(a, b)
 
     warp_impl, max_disp = resolve_warp_impl(config)
 
@@ -187,12 +102,7 @@ def coarse_to_fine_pyramids(
             a, b, u, v, quantize=config.quantize_warp, impl=warp_impl, max_disp=max_disp
         )
 
-    warp_solve = _resolve_warp_solve(config, warp_impl, max_disp, solve, warp)
-    level_step = _resolve_level_step(config, warp_impl, max_disp, warp_solve)
-    return run_pyramid(
-        list(pyr1), list(pyr2), solve, warp, config,
-        warp_solve=warp_solve, level_step=level_step, need_images=_need_images,
-    )
+    return run_pyramid(list(pyr1), list(pyr2), solve, warp, config)
 
 
 def coarse_to_fine_with_images(
@@ -201,7 +111,6 @@ def coarse_to_fine_with_images(
     levels: Optional[int] = None,
     *,
     config: FlowConfig = FlowConfig(),
-    _need_images: bool = True,
 ) -> Tuple[jnp.ndarray, jnp.ndarray, jnp.ndarray, jnp.ndarray]:
     """Pyramidal LK; returns (u, v, warped_img1, warped_img2).
 
@@ -216,11 +125,9 @@ def coarse_to_fine_with_images(
     reference mode, which rejects level_iters > 1.
     """
     levels = _validate_levels(levels, img1.shape, config)
-    pyr1 = gaussian_pyramid(img1, levels, impl=config.pyr_impl)
-    pyr2 = gaussian_pyramid(img2, levels, impl=config.pyr_impl)
-    return coarse_to_fine_pyramids(
-        pyr1, pyr2, config=config, _need_images=_need_images
-    )
+    pyr1 = gaussian_pyramid(img1, levels)
+    pyr2 = gaussian_pyramid(img2, levels)
+    return coarse_to_fine_pyramids(pyr1, pyr2, config=config)
 
 
 def coarse_to_fine(
@@ -231,7 +138,5 @@ def coarse_to_fine(
     config: FlowConfig = FlowConfig(),
 ) -> Tuple[jnp.ndarray, jnp.ndarray]:
     """Pyramidal dense LK flow; returns (u, v)."""
-    u, v, _, _ = coarse_to_fine_with_images(
-        img1, img2, levels, config=config, _need_images=False
-    )
+    u, v, _, _ = coarse_to_fine_with_images(img1, img2, levels, config=config)
     return u, v

@@ -10,7 +10,7 @@ via Jacobi iterations
 
     u <- ubar - fx (fx ubar + fy vbar + ft) / (alpha^2 + fx^2 + fy^2)
 
-with the classic weighted neighbour average. TPU-native structure: the
+with the classic weighted neighbour average. Device-side structure: the
 iteration is a `lax.fori_loop` of pure stencil+elementwise steps (one fused
 XLA loop body, flow fields stay on-chip); gradients reuse the
 reference-faithful fx/fy/ft ops so LK and HS are directly comparable; a
@@ -41,8 +41,9 @@ class HornSchunckConfig:
     # Coarse-to-fine uses the displacement-true 'corrected' scheme (flow
     # doubled on upsample, convergent warp). HS is an extension with no
     # reference-parity obligation, so there is no 'reference' mode here.
-    # warp_clamp bounds the warp displacement per level; it also enables
-    # the gather-free shift warp on TPU (warp_impl='auto').
+    # warp_clamp bounds the warp displacement per level; with it,
+    # warp_impl='auto' takes the separable shift warp (levels > 1 only:
+    # a single level warps nothing).
     warp_clamp: Optional[float] = 8.0
     warp_impl: str = "auto"
 

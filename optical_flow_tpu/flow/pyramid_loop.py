@@ -8,25 +8,11 @@ displacement-true) and level_iters semantics from drifting apart.
 
 solve(level_index, img1, img2) -> (u, v)
 warp(level_index, img1, img2, u, v) -> (w1, w2)   # symmetric half-flow
-warp_solve(level_index, img1, img2, u, v) -> (du, dv)   # optional fusion
-level_step(level_index, img1, img2, u_coarse, v_coarse) -> (u, v)
-
-`warp_solve`, when given, computes solve(warp(...)) without materializing
-the warped frames (the fused Pallas kernel, kernels/warp_lk_kernel.py) —
-it receives the SAME already-clamped/negated (u, v) the warp would. It is
-used at every level except, when `need_images` is True, the finest (whose
-warped frames are part of the return contract, LKof.cpp:191-228).
-
-`level_step`, when given (corrected mode only), subsumes the ENTIRE
-inter-level computation — upsample+double+clamp+negate+warp+solve+add —
-taking the coarser level's ACCUMULATED flow and returning this level's
-(kernels/warp_lk_kernel.py::pyrup_warp_lk_pallas). Same finest-level
-exception as warp_solve.
 """
 
 from __future__ import annotations
 
-from typing import Callable, List, Optional, Tuple
+from typing import Callable, List, Tuple
 
 import jax.numpy as jnp
 
@@ -40,15 +26,9 @@ def run_pyramid(
     solve: Callable,
     warp: Callable,
     config: FlowConfig,
-    *,
-    warp_solve: Optional[Callable] = None,
-    level_step: Optional[Callable] = None,
-    need_images: bool = True,
 ) -> Tuple[jnp.ndarray, jnp.ndarray, jnp.ndarray, jnp.ndarray]:
     """Returns (u, v, finest_img1, finest_img2) per the reference's
-    in-place-mutation contract (LKof.cpp:191-228). With `warp_solve`/
-    `level_step` and need_images=False the finest frames are returned
-    UNWARPED (the fused paths never materialize warped frames)."""
+    in-place-mutation contract (LKof.cpp:191-228)."""
     if config.mode not in ("reference", "corrected"):
         raise ValueError(
             f"mode must be 'reference' or 'corrected', got {config.mode!r}"
@@ -62,8 +42,6 @@ def run_pyramid(
             "level_iters > 1 requires mode='corrected' (reference-mode flow "
             "is not displacement; re-warping by it diverges)"
         )
-    if level_step is not None and not corrected:
-        raise ValueError("level_step fuses the corrected-mode inter-level math")
     levels = len(pyr1)
     orig1 = list(pyr1)
     orig2 = list(pyr2)
@@ -77,8 +55,6 @@ def run_pyramid(
     for i in range(levels - 1, -1, -1):
         if i == levels - 1:
             u, v = solve(i, pyr1[i], pyr2[i])
-        elif level_step is not None and not (i == 0 and need_images):
-            u, v = level_step(i, pyr1[i], pyr2[i], u, v)
         else:
             if corrected:
                 # standard pyramidal LK: coordinates double between levels,
@@ -86,8 +62,6 @@ def run_pyramid(
                 # reference's symmetric warp — img1 sampled at x + u/2,
                 # img2 at x - u/2 — INCREASES their separation for positive
                 # flow; a faithful quirk in 'reference' mode, negated here)
-                # cols-first: half the lane-interleave relayout volume
-                # (ops/pyramid.py); the fused kernel mirrors its rounding
                 upu = 2.0 * pyr_up_cols_first(u)
                 upv = 2.0 * pyr_up_cols_first(v)
                 wu, wv = _clamped(upu, upv)
@@ -96,11 +70,8 @@ def run_pyramid(
                 upu = pyr_up(u)  # flow NOT doubled: faithful to the reference
                 upv = pyr_up(v)
                 wu, wv = _clamped(upu, upv)
-            if warp_solve is not None and not (i == 0 and need_images):
-                du, dv = warp_solve(i, pyr1[i], pyr2[i], wu, wv)
-            else:
-                pyr1[i], pyr2[i] = warp(i, pyr1[i], pyr2[i], wu, wv)
-                du, dv = solve(i, pyr1[i], pyr2[i])
+            pyr1[i], pyr2[i] = warp(i, pyr1[i], pyr2[i], wu, wv)
+            du, dv = solve(i, pyr1[i], pyr2[i])
             # accumulation stays UNCLAMPED (round-5 review candidate,
             # measured and REJECTED): the coarse estimate is the best
             # information available beyond the warp clamp — accumulating
@@ -119,11 +90,8 @@ def run_pyramid(
             wu, wv = _clamped(u, v)
             if corrected:
                 wu, wv = -wu, -wv  # convergent warp (see mode note above)
-            if warp_solve is not None:
-                du, dv = warp_solve(i, orig1[i], orig2[i], wu, wv)
-            else:
-                w1, w2 = warp(i, orig1[i], orig2[i], wu, wv)
-                du, dv = solve(i, w1, w2)
+            w1, w2 = warp(i, orig1[i], orig2[i], wu, wv)
+            du, dv = solve(i, w1, w2)
             # accumulation intentionally UNCLAMPED here too (round-5
             # review candidate, measured and rejected in BOTH positions:
             # clip(u) + du gave translation-ladder EPE 2.37/2.53 at

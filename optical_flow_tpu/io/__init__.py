@@ -2,7 +2,7 @@
 
 The reference leans on OpenCV `VideoCapture` for decode
 (ParallelVideoPyr.cpp:737). Here decode is host-native (it never belongs on
-the TPU): an ffmpeg raw-pipe backend (own subprocess, zero-copy into numpy)
+the device): an ffmpeg raw-pipe backend (own subprocess, zero-copy into numpy)
 with a cv2 fallback, plus a double-buffered async prefetcher so decode and
 H2D transfer overlap device compute (SURVEY.md P6).
 """

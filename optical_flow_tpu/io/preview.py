@@ -2,8 +2,8 @@
 
 The reference's interactive surface is an `imshow` window + `waitKey`
 on the machine running the loop (/root/reference/ParallelVideoPyr.cpp:
-890-891, of.cpp:86-87). A TPU host is headless and usually remote, so
-the TPU-native live surface is an HTTP MJPEG stream: point any browser
+890-891, of.cpp:86-87). An accelerator host is headless and usually remote, so
+the live surface here is an HTTP MJPEG stream: point any browser
 (or `ffplay http://host:PORT/stream`) at the host and watch the
 annotated frames as the pipeline produces them.
 

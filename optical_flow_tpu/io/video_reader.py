@@ -2,7 +2,7 @@
 
 Preferred backend is an ffmpeg subprocess streaming raw BGR24 frames over a
 pipe — no per-frame Python codec work, and decode runs concurrently with
-device compute in its own process (the TPU-native replacement for the
+device compute in its own process (the replacement for the
 reference's synchronous `capture >> frame`, ParallelVideoPyr.cpp:782).
 Falls back to cv2.VideoCapture when ffmpeg is unavailable.
 """
@@ -95,9 +95,6 @@ class VideoReader:
     """
 
     def __init__(self, path, backend: str = "auto", gray: bool = False):
-        from optical_flow_tpu.utils.compat import warm_compile_client
-
-        warm_compile_client()  # before any codec library loads (see compat.py)
         self.gray = bool(gray)
         pipe = _parse_pipe_spec(path) if isinstance(path, str) else None
         if pipe is not None:

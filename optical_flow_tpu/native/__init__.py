@@ -42,11 +42,6 @@ def load_library() -> Optional[ctypes.CDLL]:
         if _lib is not None or _tried:
             return _lib
         _tried = True
-        # libframepipe links libavcodec; the TPU compile client must
-        # initialize before those libraries enter the process (utils/compat).
-        from optical_flow_tpu.utils.compat import warm_compile_client
-
-        warm_compile_client()
         if not _LIB_PATH.exists() and not _build():
             return None
         try:

@@ -1,8 +1,8 @@
-// Native host runtime for the TPU flow engine.
+// Native host runtime for the flow engine.
 //
 // The reference's host-side native work is OpenCV's VideoCapture decode and
 // saveMat/golden-file text IO (ParallelVideoPyr.cpp:737, LKof.cpp:139-150,
-// serialOrig.cpp:575-636). TPU-native equivalents:
+// serialOrig.cpp:575-636). equivalents here:
 //
 //   FramePipe  — video decode straight through libavformat/libavcodec with
 //                libswscale BGR24 conversion, running on a background
@@ -47,7 +47,7 @@ struct Decoder {
   double fps = 0.0;
   bool gray = false;  // GRAY8 output (1 byte/px): one sws YUV->gray pass
                       // instead of YUV->BGR24, and a third of the bytes
-                      // crossing host->device (PCIe or tunnel) when the
+                      // crossing host->device (PCIe) when the
                       // consumer is the fast (gray-first) preprocess
   bool draining = false;
   bool have_pending = false;  // pkt holds data the codec hasn't accepted yet

@@ -1,4 +1,4 @@
-// Native V4L2 camera capture for the TPU flow engine.
+// Native V4L2 camera capture for the flow engine.
 //
 // The reference's flagship and both sparse demos capture a live webcam
 // (cv::VideoCapture(0): ParallelVideoPyr.cpp:737, of.cpp:45). libavdevice

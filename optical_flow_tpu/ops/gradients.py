@@ -13,9 +13,8 @@ pixels (y-1..y, x-1..x); out-of-range reads reflect without repeating the
 edge (index -1 -> 1). NOTE: there is no 0.25 normalisation factor (the
 Matlab derivation in the reference docs uses one; the C++ does not).
 
-On TPU these are pure VPU shift-and-add chains which XLA fuses with the
-downstream products; the Pallas kernel in kernels/lk_kernel.py fuses the
-whole LK level in one VMEM pass.
+These are shift-and-add chains which XLA fuses with the downstream
+products and window sums of the LK level.
 """
 
 from __future__ import annotations

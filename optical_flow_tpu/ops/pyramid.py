@@ -19,7 +19,6 @@ max_pyramid_levels: the reference's getMaxLayer (LKof.cpp:230-249) is the
 
 from __future__ import annotations
 
-from functools import lru_cache
 from typing import List, Tuple
 
 import jax.numpy as jnp
@@ -32,8 +31,7 @@ _K5 = (0.0625, 0.25, 0.375, 0.25, 0.0625)
 
 def _parity_planes(p, axis):
     """Split `p` into (even, odd) index planes along `axis` via a
-    reshape-split (a strided slice would relayout); pads one junk
-    row/column when the extent is odd."""
+    reshape-split; pads one junk row/column when the extent is odd."""
     n = p.shape[axis]
     if n % 2:
         cfg = [(0, 0)] * p.ndim
@@ -63,89 +61,23 @@ def _row_pass_poly(x):
     )
 
 
-@lru_cache(maxsize=None)
-def _decim_matrix(n: int):
-    """Banded decimation+filter matrix for the MXU column pass:
-    out[:, c] = sum_t K5[t] * p[:, 2c + t] for p reflect-padded by 2
-    (n + 4 columns), out ceil(n/2) columns."""
-    import numpy as np
-
-    nc = -(-n // 2)
-    S = np.zeros((n + 4, nc), np.float32)
-    for c in range(nc):
-        for t, k in enumerate(_K5):
-            S[2 * c + t, c] += k
-    return S
-
-
-def pyr_down(x, impl: str = "poly"):
+def pyr_down(x):
     """One pyramid level down: 5-tap blur + 2x decimation (cv::pyrDown).
 
-    impl='poly' (default, the bit-pinned production path): POLYPHASE —
-    the filter is evaluated ONLY at the kept (even) output positions,
-    reading the reflect-padded input through its even/odd parity planes —
+    POLYPHASE: the filter is evaluated ONLY at the kept (even) output
+    positions, reading the reflect-padded input through its even/odd
+    parity planes —
     out[r] = k0*E[r] + k1*O[r] + k2*E[r+1] + k3*O[r+1] + k4*E[r+2]
-    (same tap order as the plain filter, so the result is BIT-identical).
-    This avoids both filtering at positions that are then thrown away and
-    any strided decimation slice: the original `[::2, ::2]` lowered to a
-    catastrophic lane relayout (2.88 ms at 1080^2), filtering-then-
-    slicing rows cost 0.18 ms for an image pair, the polyphase form
-    0.11 ms (v5e device spans).
-
-    impl='mxu': the row pass stays polyphase on the VPU; the COLUMN
-    decimation runs as one banded-matrix matmul on the (otherwise idle)
-    MXU — the lane parity-split reshape disappears. K5 taps are exact in
-    bf16 so HIGHEST-precision products are exact; only the accumulation
-    order differs from the VPU form (f32 roundoff, pinned in
-    tests/test_ops.py). Measured a wash vs poly at the streaming batch
-    shape (ROADMAP), kept as a knob.
-
-    impl='pallas': the fused band kernel (kernels/pyrdown_kernel.py) —
-    both passes in one VMEM visit, 'mxu' numerics, ~14% faster than poly
-    standalone at 1080^2. Round 3 measured it a WASH inside the fused
-    streaming chain; under the round-4 band layout it wins ~7% end to end
-    (590 -> 549 us/pair at 1080^2, device spans), so the production
-    presets opt in via 'auto'.
-
-    impl='auto': 'pallas' on the TPU backend, 'poly' elsewhere (the
-    Mosaic kernel has no CPU lowering; CPU keeps the bit-pinned path).
+    (same tap order as the plain filter, so the result is BIT-identical),
+    with no filtering at positions that are then thrown away. Integer
+    inputs promote to float32.
     """
-    if impl == "auto":
-        import jax
-
-        impl = "pallas" if jax.default_backend() == "tpu" else "poly"
     if jnp.issubdtype(jnp.asarray(x).dtype, jnp.integer):
-        # one dtype contract across impls: 'poly' always promoted integer
-        # inputs to float, while 'pallas'/'mxu' astype(x.dtype) TRUNCATED
-        # the float result toward zero (round-5 review — same input gave
-        # float32 on CPU and truncated uint8 on TPU); promote up front so
-        # every impl returns the same float32
         x = jnp.asarray(x, jnp.float32)
-    if impl == "pallas":
-        # Fused band kernel: both passes in one VMEM visit (row pass
-        # bit-identical poly, column pass = the 'mxu' matmul semantics).
-        from optical_flow_tpu.kernels.pyrdown_kernel import pyr_down_pallas
-
-        if x.shape[-2] >= 4 and x.shape[-1] >= 2:
-            return pyr_down_pallas(x).astype(x.dtype)
-        impl = "poly"  # degenerate level: reflect halos don't exist
     W = x.shape[-1]
     Wc = -(-W // 2)
     r = _row_pass_poly(x)
     pc = pad_last2(r, 0, 0, 2, 2, mode="reflect")
-    if impl == "mxu":
-        S = jnp.asarray(_decim_matrix(W))
-        from jax import lax
-
-        return jnp.matmul(
-            pc, S, precision=lax.Precision.HIGHEST,
-            preferred_element_type=jnp.float32,
-        ).astype(x.dtype)
-    if impl != "poly":
-        raise ValueError(
-            "pyr_down impl must be 'poly', 'mxu', 'pallas' or 'auto', "
-            f"got {impl!r}"
-        )
     Ec, Oc = _parity_planes(pc, pc.ndim - 1)
     return (
         _K5[0] * Ec[..., :, 0:Wc]
@@ -186,10 +118,8 @@ def _pyr_up_stuffed(x):
     """pyr_up via zero-stuffing (lax.pad interior) + one 5-tap pass per axis.
 
     Same taps in the same order as `_pyr_up_stack` (the stuffed zeros add
-    exact +0.0 terms), so results are bit-identical up to the sign of zero —
-    but the HLO has no stack/reshape interleave, which on TPU costs a
-    cascade of layout copies (~0.1 ms/frame at 1080^2 in the production
-    pyramid, the ROADMAP 'pyr_up strided interleave' item).
+    exact +0.0 terms), so results are bit-identical up to the sign of zero,
+    with no stack/reshape interleave in the HLO.
     """
     from jax import lax
 
@@ -210,11 +140,10 @@ def _pyr_up_stuffed(x):
 
 def _pyr_up_stack_cols_first(x):
     """pyr_up with the COLUMN pass first — same taps, so it matches cv2 at
-    f64 roundoff like `_pyr_up_stack`, but the expensive lane interleave
-    runs at the COARSE height (H+2 rows) instead of the doubled height
-    (2H): half the relayout volume on TPU, both in XLA and inside the
-    fused inter-level kernel (which mirrors this exact arithmetic; the
-    rows-first form stays the default for the bit-pinned parity path)."""
+    f64 roundoff like `_pyr_up_stack`; the column interleave runs at the
+    COARSE height (H+2 rows) instead of the doubled height (2H). The
+    corrected-mode loop upsamples with it; the rows-first form stays the
+    default for the bit-pinned parity path."""
     H, W = x.shape[-2], x.shape[-1]
     p = _pad_pyrup(x)  # (..., H+2, W+2), offset 1
     k = tuple(2.0 * v for v in _K5)
@@ -238,11 +167,11 @@ def pyr_up_cols_first(x):
     return _pyr_up_stack_cols_first(x)
 
 
-def gaussian_pyramid(img, levels: int, impl: str = "poly") -> List[jnp.ndarray]:
+def gaussian_pyramid(img, levels: int) -> List[jnp.ndarray]:
     """n-level pyramid; level 0 is the input itself (LKof.cpp:180-189)."""
     pyr = [img]
     for _ in range(levels - 1):
-        pyr.append(pyr_down(pyr[-1], impl=impl))
+        pyr.append(pyr_down(pyr[-1]))
     return pyr
 
 

@@ -16,7 +16,8 @@ Two parity details:
     (BORDER_CONSTANT with value 0), it is not clamped.
 
 Implemented as four gathers on flattened indices (XLA lowers these to
-dynamic-gather; kernels/ provides a Pallas version for the hot path).
+one fused gather); `symmetric_warp_shift_sep` is the gather-free separable
+form for bounded displacements.
 """
 
 from __future__ import annotations
@@ -111,14 +112,12 @@ def symmetric_warp(
     LKof.cpp:215-224. Maps are built in float32 like the reference's
     Point2f maps.
 
-    impl='gather' is the exact unbounded path; impl='shift' uses the
-    gather-free decomposition (requires |u|,|v| <= 2*max_disp — i.e. a
-    clamped flow; ~1 ulp from the gather path, vastly faster on TPU);
-    impl='shift_sep' is its separable O(max_disp) production form with
-    flow-space quantization and weights shared across the pair
-    (symmetric_warp_shift_sep).
+    impl='gather' is the exact unbounded path; impl='shift_sep' is the
+    gather-free separable O(max_disp) form for a clamped flow
+    (|u|,|v| <= 2*max_disp) with flow-space quantization and weights
+    shared across the pair (symmetric_warp_shift_sep).
     """
-    if impl in ("shift", "shift_sep") and max_disp <= 0:
+    if impl == "shift_sep" and max_disp <= 0:
         # silent identity otherwise: the shift decomposition clamps
         # displacement to [-2*max_disp, 2*max_disp], so max_disp=0
         # returned both frames UNWARPED with no error (round-5 review)
@@ -129,7 +128,7 @@ def symmetric_warp(
         )
     if jnp.issubdtype(img1.dtype, jnp.integer):
         # ONE dtype contract across impls (meta-review): integer inputs
-        # promote to float32 everywhere — the shift paths' fixed-point
+        # promote to float32 everywhere — the shift path's fixed-point
         # offsets WRAP in unsigned dtypes, and leaving gather integer
         # made the output dtype depend on backend-driven auto-selection
         img1 = img1.astype(jnp.float32)
@@ -142,17 +141,11 @@ def symmetric_warp(
         return symmetric_warp_shift_sep(
             img1, img2, hx, hy, max_disp, quantize=quantize
         )
+    if impl != "gather":
+        raise ValueError(f"warp impl must be 'gather' or 'shift_sep', got {impl!r}")
     H, W = img1.shape[-2], img1.shape[-1]
     xs = jnp.arange(W, dtype=jnp.float32)[None, :]
     ys = jnp.arange(H, dtype=jnp.float32)[:, None]
-    if impl == "shift":
-        w1 = remap_bilinear_shift(img1, xs + hx, ys + hy, max_disp, quantize=quantize)
-        w2 = remap_bilinear_shift(img2, xs - hx, ys - hy, max_disp, quantize=quantize)
-        return w1, w2
-    if impl != "gather":
-        raise ValueError(
-            f"warp impl must be 'gather', 'shift' or 'shift_sep', got {impl!r}"
-        )
     w1 = remap_bilinear(img1, xs + hx, ys + hy, quantize=quantize)
     w2 = remap_bilinear(img2, xs - hx, ys - hy, quantize=quantize)
     return w1, w2
@@ -162,7 +155,7 @@ def quantize_disp(d, max_disp, *, quantize: bool = True):
     """Clamp a displacement field to [-max_disp, max_disp] and optionally
     quantize it in FLOW space: d -> rint(d * 32) / 32.
 
-    Unlike the coordinate-space fixed point of cv2.remap (shift_disp_fields
+    Unlike the coordinate-space fixed point of cv2.remap (remap_bilinear
     quantizes x + d), this is position-independent: a tiled warp computes
     identical displacements with no global-coordinate plumbing, and a
     symmetric pair (+d, -d) quantizes to exact negatives, letting both
@@ -172,7 +165,7 @@ def quantize_disp(d, max_disp, *, quantize: bool = True):
     quantization by at most 1/32 px at pixels where the f32 rounding of
     (x + d) * 32 lands on the other side of a half-integer — irrelevant
     for the approximation path this serves (the exactness/parity path is
-    impl='shift'/'gather').
+    impl='gather').
     """
     C = float(max_disp)
     d = jnp.clip(d, -C, C)
@@ -217,7 +210,7 @@ def _shift_sep_core(planes, signs, dx_ext, dy, max_disp: int):
 
 def symmetric_shift_sep_sum(p1, p2, dx_ext, dy, max_disp: int):
     """Both symmetric separable shift warps in one pass with shared hat
-    weights — the core of the production TPU warp, used by the global
+    weights — the core of the separable shift warp, used by the global
     wrapper (symmetric_warp_shift_sep) and the mesh-tiled warp
     (parallel/sharded_warp.py); one copy so the two stay bit-identical.
 
@@ -231,136 +224,26 @@ def symmetric_shift_sep_sum(p1, p2, dx_ext, dy, max_disp: int):
     return o1, o2
 
 
-def shift_disp_fields(map_x, map_y, xs, ys, max_disp: int, *, quantize: bool, dtype):
-    """Per-pixel displacement fields (dx, dy) = map - identity, quantized
-    like cv2.remap's 5-bit fixed-point tables and clamped to
-    [-max_disp, max_disp] — the weights input of the shift-decomposed warp.
-
-    xs/ys are the identity coordinates the maps are relative to; passing
-    GLOBAL coordinates from a tiled caller reproduces the unsharded
-    arithmetic bit-for-bit (integer-valued f32 adds are exact below 2^24).
-    """
-    if quantize:
-        sx = jnp.rint(map_x.astype(jnp.float32) * _INTER_TAB_SIZE).astype(jnp.int32)
-        sy = jnp.rint(map_y.astype(jnp.float32) * _INTER_TAB_SIZE).astype(jnp.int32)
-        dxq = sx.astype(dtype) / _INTER_TAB_SIZE - xs.astype(dtype)
-        dyq = sy.astype(dtype) / _INTER_TAB_SIZE - ys.astype(dtype)
-    else:
-        dxq = (map_x - xs).astype(dtype)
-        dyq = (map_y - ys).astype(dtype)
-    C = int(max_disp)
-    return jnp.clip(dxq, -C, C), jnp.clip(dyq, -C, C)
-
-
-def shift_warp_sum(p, dxq, dyq, max_disp: int, *, separable: bool = False):
-    """The non-separable shift-decomposition kernel shared by the global
-    (`remap_bilinear_shift`) and mesh-tiled (`parallel/sharded_warp.py`)
-    exact 'shift' warps — one copy so the two paths cannot drift and stay
-    bit-identical. (The separable production form lives in
-    `symmetric_shift_sep_sum`/`_shift_sep_core`.)
-
-    p:   source extended with margin M = max_disp+1 on both spatial axes
-         (zero padding globally; halo-exchanged data + 1 zero ring when
-         tiled — the outermost ring always has exactly-zero hat weight
-         since |d| <= max_disp, so tile vs global data there is irrelevant).
-    dxq: clamped x-displacement per OUTPUT pixel, (..., H, W).
-    dyq: clamped y-displacement, (..., H, W).
-    """
-    if separable:
-        raise ValueError(
-            "separable shift warps moved to symmetric_shift_sep_sum "
-            "(flow-space quantization, shared weights)"
-        )
-    C = int(max_disp)
-    M = C + 1
-    H, W = dyq.shape[-2], dyq.shape[-1]
-    one = jnp.asarray(1.0, p.dtype)
-    batch = jnp.broadcast_shapes(p.shape[:-2], dxq.shape[:-2])
-    wx = {k: jnp.maximum(0.0, one - jnp.abs(dxq - k)) for k in range(-C, C + 2)}
-    out = jnp.zeros(batch + (H, W), p.dtype)
-    for ky in range(-C, C + 2):
-        wy = jnp.maximum(0.0, one - jnp.abs(dyq - ky))
-        inner = jnp.zeros(batch + (H, W), p.dtype)
-        for kx in range(-C, C + 2):
-            inner = inner + wx[kx] * p[..., M + ky : M + ky + H, M + kx : M + kx + W]
-        out = out + wy * inner
-    return out
-
-
-def remap_bilinear_shift(
-    src, map_x, map_y, max_disp: int, *, quantize: bool = True, separable: bool = False
-):
-    """Gather-free remap for BOUNDED displacements: the bilinear warp is
-    decomposed into a sum over STATIC integer 2-D shifts with per-pixel
-    hat weights,
-
-        out(p) = sum_{ky,kx} hat(dy(p)-ky) hat(dx(p)-kx) src(p + (ky,kx))
-        hat(t) = max(0, 1 - |t|)
-
-    Exactly the four bilinear taps get nonzero weight per pixel,
-    out-of-image shifts contribute 0 (remap's BORDER_CONSTANT), and with
-    `quantize` the per-pixel d uses the same 5-bit fixed-point fractions
-    as `remap_bilinear` — same taps, same weights, summed in a different
-    order (~1 ulp difference). The double sum cannot be split into two
-    data-dependent 1-D passes (the inner pass would use the neighbour
-    row's displacement), so the cost is (2*max_disp+2)^2 fused
-    multiply-add planes — still far cheaper than gathers on TPU
-    (profiled ~7.7 ms per gathered tap plane at 1080^2; the shift form is
-    pure fused VPU work).
-
-    Requires |map - identity| <= max_disp (values beyond are clamped).
-    src: (..., H, W); map_x/map_y: (H, W) absolute sample coordinates
-    (same convention as remap_bilinear, same-size output only).
-
-    `separable=True` selects the O(C) two-pass approximation: the x-pass
-    interpolates each row with the OUTPUT pixel's dx; the y-pass then
-    mixes rows whose x-pass used THEIR dx — exact only where dx is
-    constant along y. Flow fields here are window-averaged (smooth), and
-    the pyramid's residual solves absorb the remaining error; ~6x fewer
-    flops than the double sum, and it quantizes in FLOW space
-    (quantize_disp) rather than cv2's coordinate space — the weights are
-    position-independent, so the tiled warp needs no coordinate plumbing
-    and the symmetric pair shares weights (symmetric_warp_shift_sep).
-    Measured bounds (tests/test_ops.py::TestShiftSepWarp, CPU f32,
-    unit-scale random-noise image — worst-case content):
-      dx constant along y (quantize off): exact (<= 6e-8, one ulp)
-      9x9-box-smoothed random flow:       max |err| ~0.21, mean ~0.007
-      adversarial dx alternating sign
-      every row with fractional dy:       max |err| ~0.48, mean ~0.12
-    End-to-end (corrected 4-level pyramid, level_iters=2) the flow
-    agrees with the exact 'shift' form to ~2e-4 px median and meets
-    the same EPE budget (test_pyramid_shift_sep_*).
-    """
-    H, W = src.shape[-2], src.shape[-1]
-    xs = jnp.arange(W, dtype=jnp.float32)[None, :]
-    ys = jnp.arange(H, dtype=jnp.float32)[:, None]
-    C = int(max_disp)
-    if separable:
-        dxq = quantize_disp((map_x - xs).astype(src.dtype), C, quantize=quantize)
-        dyq = quantize_disp((map_y - ys).astype(src.dtype), C, quantize=quantize)
-        M = C
-        pads = [(0, 0)] * (src.ndim - 2) + [(M, M), (M, M)]
-        p = jnp.pad(src, pads)
-        dxq_ext = jnp.pad(dxq, [(0, 0)] * (dxq.ndim - 2) + [(M, M), (0, 0)])
-        return _shift_sep_core((p,), (1,), dxq_ext, dyq, C)[0]
-    dxq, dyq = shift_disp_fields(
-        map_x, map_y, xs, ys, max_disp, quantize=quantize, dtype=src.dtype
-    )
-    # Pad ONCE; every shifted term is then a pure slice of the same padded
-    # operand (XLA fuses slices of one array; per-term jnp.pad materialized
-    # 144 planes and dominated the warp).
-    M = C + 1
-    pads = [(0, 0)] * (src.ndim - 2) + [(M, M), (M, M)]
-    p = jnp.pad(src, pads)
-    return shift_warp_sum(p, dxq, dyq, max_disp, separable=False)
-
-
 def symmetric_warp_shift_sep(
     img1, img2, hx, hy, max_disp: int, *, quantize: bool = True
 ) -> Tuple[jnp.ndarray, jnp.ndarray]:
-    """The production TPU symmetric warp: both frames warped half-way
+    """The separable shift symmetric warp: both frames warped half-way
     toward each other by the separable shift decomposition, sharing hat
     weights (img1 samples at +d, img2 at -d; see symmetric_shift_sep_sum).
+
+    The bilinear warp is a sum over STATIC integer shifts with hat
+    weights hat(t) = max(0, 1 - |t|); out-of-image shifts contribute 0
+    (remap's BORDER_CONSTANT). The x-pass interpolates each row with the
+    OUTPUT pixel's dx and the y-pass then mixes rows whose x-pass used
+    THEIR dx, so the form is exact only where dx is constant along y.
+    Flow fields here are window-averaged (smooth) and the pyramid's
+    residual solves absorb the rest. Measured bounds against the gather
+    warp (tests/test_ops.py::TestShiftSepWarp, CPU f32, unit-scale
+    random-noise image — worst-case content):
+      dx constant along y:                exact to f32 roundoff
+      9x9-box-smoothed random flow:       max |err| ~0.21, mean ~0.007
+      adversarial dx alternating sign
+      every row with fractional dy:       max |err| ~0.48, mean ~0.12
 
     hx/hy: the HALF-flow (u/2, v/2); |hx|,|hy| beyond max_disp are
     clamped. Tap reach is exactly max_disp, so callers can size it as

@@ -8,7 +8,7 @@ and the loops skip the border). The `tmp == 9 else m*9` fallback inside
 border-ring-zero rule is the complete semantics.
 
 Implemented as a separable shift-add (2 adds per axis instead of 8) with a
-static border mask — fuses into the surrounding elementwise chain on TPU.
+static border mask — fuses into the surrounding elementwise chain.
 """
 
 from __future__ import annotations
@@ -32,7 +32,7 @@ def sum3x3_interior(x):
     """3x3 box sum on the interior; the 1-px border ring is zero.
 
     The reference calls get_Sum9_Mat five times per LK solve
-    (LKof.cpp:164-168); lucas_kanade_jnp stacks the five product planes on
+    (LKof.cpp:164-168); lucas_kanade stacks the five product planes on
     a leading axis so one call vectorises all the shifts.
     """
     s = _box3_cols(_box3_rows(x))

@@ -2,20 +2,20 @@
 
 The reference's entire parallel story is single-process OpenMP threads
 (SURVEY.md section 2.3): task teams per matrix op and row-parallel loops.
-The TPU-native equivalents built here:
+The multi-device equivalents built here:
 
 - frame parallelism (DP over time): batch of frame pairs sharded over a
   'frames' mesh axis,
-- spatial tiling (the analogue of row-parallel loops, but across chips):
+- spatial tiling (the analogue of row-parallel loops, but across devices):
   2-D image tiles over ('rows', 'cols') axes with stencil halo exchange via
-  `jax.lax.ppermute` over ICI — replacing the shared-memory neighbour reads
+  `jax.lax.ppermute` — replacing the shared-memory neighbour reads
   OpenMP got for free,
 - coarse pyramid levels run replicated (too small to shard profitably);
   fine levels run tiled.
 """
 
 from optical_flow_tpu.parallel.mesh import flow_mesh, mesh_factorization
-from optical_flow_tpu.parallel.halo import exchange_halo, exchange_halo_pyrup
+from optical_flow_tpu.parallel.halo import exchange_halo
 from optical_flow_tpu.parallel.sharded_lk import sharded_lucas_kanade
 from optical_flow_tpu.parallel.sharded_flow import (
     sharded_coarse_to_fine,
@@ -23,10 +23,6 @@ from optical_flow_tpu.parallel.sharded_flow import (
     sharded_coarse_to_fine_with_images,
 )
 from optical_flow_tpu.parallel.sharded_warp import sharded_symmetric_warp
-from optical_flow_tpu.parallel.sharded_warp_lk import (
-    sharded_pyrup_warp_lk,
-    sharded_warp_lk,
-)
 
 __all__ = [
     "flow_mesh",
@@ -37,7 +33,4 @@ __all__ = [
     "sharded_coarse_to_fine_pyramids",
     "sharded_coarse_to_fine_with_images",
     "sharded_symmetric_warp",
-    "exchange_halo_pyrup",
-    "sharded_pyrup_warp_lk",
-    "sharded_warp_lk",
 ]

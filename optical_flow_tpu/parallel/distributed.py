@@ -4,8 +4,8 @@ reference is single-process OpenMP; SURVEY.md section 2.3).
 A multi-host flow job maps onto:
   - one process per host, `jax.distributed.initialize` for the runtime,
   - a global (frames, rows, cols) mesh over all hosts' devices: halo
-    collectives ride ICI inside a slice, only frame-axis transfers (none in
-    steady state) cross DCN,
+    collectives stay between the devices of one host, only frame-axis
+    transfers (none in steady state) cross the host network,
   - frame IO partitioned by host: host h decodes frames h, h+P, h+2P, ...
     (its own VideoReader) and feeds only its addressable shards via
     `host_local_frames` + `jax.make_array_from_process_local_data`.
@@ -132,7 +132,7 @@ def host_local_frames(
 ) -> Iterator[np.ndarray]:
     """Round-robin frame partition across hosts: host h takes frames
     h, h+P, h+2P, ... (each host runs its own decoder over the same file —
-    cheaper than shipping pixels over DCN for compressed video)."""
+    cheaper than shipping pixels between hosts for compressed video)."""
     p = jax.process_index() if process_id is None else process_id
     P = jax.process_count() if process_count is None else process_count
     for i, frame in enumerate(frames):

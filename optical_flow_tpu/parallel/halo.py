@@ -2,8 +2,8 @@
 
 The reference never needs this: its OpenMP threads share one address space,
 so a 3x3 stencil's neighbour reads are free (SURVEY.md P3). Across chips the
-neighbour rows/cols must be exchanged explicitly. `ppermute` with a
-shift-by-one permutation maps straight onto ICI nearest-neighbour links.
+neighbour rows/cols must be exchanged explicitly: `ppermute` with a
+shift-by-one permutation sends each strip to the neighbouring device only.
 
 Exchange order matters for corners: extending columns first and *then*
 exchanging rows of the already-extended array propagates corner data from
@@ -45,20 +45,6 @@ def _exchange_1d(x, k: int, axis_name: str, axis: int, n: int, border: str):
     elif border == "zero":
         lo_fill = jnp.zeros_like(_take(x, axis, 0, k))
         hi_fill = lo_fill
-    elif border == "pyrup":
-        # cv::pyrUp's asymmetric 1-sample border (ops/pyramid._pad_pyrup:
-        # index -1 reflects to 1, index n is edge-inclusive to n-1), zeros
-        # beyond — matching the fused inter-level kernel's coarse-plane
-        # padding (kernels/warp_lk_kernel._pyrup_warp_lk_batched padflow)
-        n_ax = x.shape[axis]
-        lo_src = _take(x, axis, 1, 2) if n_ax > 1 else _take(x, axis, 0, 1)
-        lo_fill = jnp.concatenate(
-            [jnp.zeros_like(_take(x, axis, 0, k - 1)), lo_src], axis=axis
-        ) if k > 1 else lo_src
-        hi_src = _take(x, axis, n_ax - 1, n_ax)
-        hi_fill = jnp.concatenate(
-            [hi_src, jnp.zeros_like(_take(x, axis, 0, k - 1))], axis=axis
-        ) if k > 1 else hi_src
     else:
         raise ValueError(f"unknown border {border!r}")
     if n > 1:
@@ -86,27 +72,6 @@ def exchange_halo_rows(
     only — used by the tiled separable shift warp, whose x-pass needs the
     neighbour rows' displacement field but never their columns."""
     return _exchange_1d(x, k, rows_axis, -2, rows_n, border)
-
-
-def exchange_halo_pyrup(
-    x,
-    k_rows: int,
-    k_cols: int,
-    *,
-    rows_axis: str = "rows",
-    cols_axis: str = "cols",
-    rows_n: int = 1,
-    cols_n: int = 1,
-):
-    """Halo exchange with cv::pyrUp's asymmetric border at global edges,
-    rows exchanged FIRST and then cols over the row-extended tile — the
-    order the fused inter-level kernel's full-frame padflow bakes in
-    (column borders derive from the row-extended strip, so corners
-    reproduce reflect-of-bake exactly; beyond the 1-sample bake the fill
-    is zero, matching the kernel's zero coarse buffer)."""
-    x = _exchange_1d(x, k_rows, rows_axis, -2, rows_n, "pyrup")
-    x = _exchange_1d(x, k_cols, cols_axis, -1, cols_n, "pyrup")
-    return x
 
 
 def exchange_halo(

@@ -4,8 +4,9 @@ Mesh axes (see config.MeshConfig):
   frames — data parallelism over frame pairs (batch),
   rows / cols — 2-D spatial tiling of each image across chips.
 
-Collectives ride ICI within a slice; `jax.make_mesh` lays devices out so
-neighbouring mesh coordinates are ICI neighbours where possible.
+`jax.make_mesh` lays the devices out; on one host of NVLink-joined GPUs
+every pair of devices is one hop apart, so any layout serves the halo
+exchange equally.
 """
 
 from __future__ import annotations

@@ -1,7 +1,7 @@
 """Sharded coarse-to-fine pyramidal flow.
 
-Parallel decomposition (the TPU answer to the reference's OpenMP pyramid,
-ParallelBasicPyr.cpp:587-703 / SURVEY.md P1-P3):
+Parallel decomposition (the multi-device answer to the reference's OpenMP
+pyramid, ParallelBasicPyr.cpp:587-703 / SURVEY.md P1-P3):
 
 - frame axis: batches of frame pairs are pure data parallelism,
 - fine pyramid levels: the LK solve (the dominant cost, 5 window sums +
@@ -35,7 +35,7 @@ from optical_flow_tpu.ops.warp import symmetric_warp
 from optical_flow_tpu.parallel.mesh import AXIS_COLS, AXIS_ROWS
 from optical_flow_tpu.parallel.sharded_lk import sharded_lucas_kanade
 
-MIN_TILE = 32  # don't spatially tile levels smaller than this per chip
+MIN_TILE = 32  # don't spatially tile levels smaller than this per device
 
 
 def _tileable(shape, rows_n: int, cols_n: int, min_tile: int) -> bool:
@@ -64,8 +64,7 @@ def sharded_coarse_to_fine(
     flow not doubled on pyrUp, symmetric half-flow warps).
     """
     u, v, _, _ = sharded_coarse_to_fine_with_images(
-        img1, img2, mesh, levels, config=config, min_tile=min_tile,
-        _need_images=False,
+        img1, img2, mesh, levels, config=config, min_tile=min_tile
     )
     return u, v
 
@@ -78,7 +77,6 @@ def sharded_coarse_to_fine_with_images(
     *,
     config: FlowConfig = FlowConfig(),
     min_tile: int = MIN_TILE,
-    _need_images: bool = True,
 ) -> Tuple[jnp.ndarray, jnp.ndarray, jnp.ndarray, jnp.ndarray]:
     """Like flow.coarse_to_fine_with_images but mesh-sharded: returns
     (u, v, warped_img1, warped_img2), the finest-level images after the
@@ -88,16 +86,12 @@ def sharded_coarse_to_fine_with_images(
     from optical_flow_tpu.flow.coarse_to_fine import _validate_levels
 
     levels = _validate_levels(levels, img1.shape, config)
-    # 'auto' resolves to 'poly' here: the mesh-sharded pyramid's
-    # tile-vs-full bit-identity is pinned for the poly path, and a
-    # pallas_call under XLA's automatic sharding of these global arrays
-    # is unproven — keep the sharded build on the bit-pinned form.
-    pyr_impl = "poly" if config.pyr_impl == "auto" else config.pyr_impl
-    pyr1 = gaussian_pyramid(img1, levels, impl=pyr_impl)
-    pyr2 = gaussian_pyramid(img2, levels, impl=pyr_impl)
+    # the pyramid build runs as global XLA ops laid out from the operand
+    # shardings — the same pyr_down as the single-device controller
+    pyr1 = gaussian_pyramid(img1, levels)
+    pyr2 = gaussian_pyramid(img2, levels)
     return sharded_coarse_to_fine_pyramids(
-        pyr1, pyr2, mesh, config=config, min_tile=min_tile,
-        _need_images=_need_images,
+        pyr1, pyr2, mesh, config=config, min_tile=min_tile
     )
 
 
@@ -108,7 +102,6 @@ def sharded_coarse_to_fine_pyramids(
     *,
     config: FlowConfig = FlowConfig(),
     min_tile: int = MIN_TILE,
-    _need_images: bool = False,
 ) -> Tuple[jnp.ndarray, jnp.ndarray, jnp.ndarray, jnp.ndarray]:
     """Mesh-sharded pyramidal LK over PREBUILT pyramids (level 0 finest) —
     the streaming-video entry point: each frame's pyramid is built once
@@ -125,9 +118,7 @@ def sharded_coarse_to_fine_pyramids(
     pyr2 = list(pyr2)
 
     # One warp-impl decision for the whole pyramid, shared with the
-    # unsharded controller so sharded == unsharded for any config (on TPU
-    # 'auto' resolves to the gather-free shift_sep form in BOTH paths —
-    # the fine-level HLO contains no gathers, VERDICT r1 item 3).
+    # unsharded controller so sharded == unsharded for any config.
     warp_impl, warp_max_disp = resolve_warp_impl(config)
     halo_k = (
         None if config.warp_clamp is None else int(-(-config.warp_clamp // 2)) + 1
@@ -135,8 +126,8 @@ def sharded_coarse_to_fine_pyramids(
 
     def solve(i, a, b):
         if _tileable(a.shape, rows_n, cols_n, min_tile):
-            return sharded_lucas_kanade(a, b, mesh, impl=config.impl)
-        return lucas_kanade(a, b, impl=config.impl)
+            return sharded_lucas_kanade(a, b, mesh)
+        return lucas_kanade(a, b)
 
     def warp(i, a, b, u, v):
         if (
@@ -167,109 +158,4 @@ def sharded_coarse_to_fine_pyramids(
             max_disp=warp_max_disp,
         )
 
-    warp_solve = _resolve_sharded_warp_solve(
-        config, warp_impl, warp_max_disp, mesh, rows_n, cols_n, min_tile,
-        solve, warp,
-    )
-    level_step = _resolve_sharded_level_step(
-        config, warp_max_disp, mesh, rows_n, cols_n, min_tile, warp_solve
-    )
-    return run_pyramid(
-        pyr1, pyr2, solve, warp, config,
-        warp_solve=warp_solve, level_step=level_step,
-        need_images=_need_images,
-    )
-
-
-def _resolve_sharded_warp_solve(
-    config, warp_impl, max_disp, mesh, rows_n, cols_n, min_tile, solve, warp
-):
-    """Fused per-tile warp+LK callable for run_pyramid, or None.
-
-    Delegates the production-path gate AND the full-frame-kernel/unfused
-    fallback ladder to the single-device `_resolve_warp_solve`
-    (flow/coarse_to_fine.py) — ONE copy of that logic to keep in sync —
-    and wraps only the tiled branch around it: levels whose tiles fit the
-    band kernel run it under shard_map; the rest behave exactly like the
-    unsharded controller (replicated fused kernel, then the unfused
-    sharded pair), keeping sharded == unsharded bit-identical at every
-    level (VERDICT r2 missing #2)."""
-    from optical_flow_tpu.flow.coarse_to_fine import _resolve_warp_solve
-
-    base = _resolve_warp_solve(config, warp_impl, max_disp, solve, warp)
-    if base is None:
-        return None
-    from optical_flow_tpu.parallel.sharded_warp_lk import (
-        sharded_warp_lk,
-        sharded_warp_lk_fits,
-    )
-
-    clamp = float(config.warp_clamp)
-
-    def warp_solve(i, a, b, wu, wv):
-        # (wu, wv) arrive already clamped/negated by the loop (same
-        # contract as the unsharded fused path: kernel clip idempotent,
-        # negate=False)
-        if _tileable(a.shape, rows_n, cols_n, min_tile) and sharded_warp_lk_fits(
-            a.shape, rows_n, cols_n, max_disp
-        ):
-            return sharded_warp_lk(
-                a, b, wu, wv, mesh, max_disp=max_disp, clamp=clamp
-            )
-        return base(i, a, b, wu, wv)
-
-    return warp_solve
-
-
-def _resolve_sharded_level_step(
-    config, max_disp, mesh, rows_n, cols_n, min_tile, warp_solve
-):
-    """Fully-fused inter-level callable for the sharded run_pyramid, or
-    None. Mirrors the unsharded `_resolve_level_step`
-    (flow/coarse_to_fine.py): corrected-mode TPU production path only;
-    tiled where the tile fits the inter-level band kernel, the full-frame
-    fused kernel (replicated) where it doesn't, and the unfused upsample
-    + (tiled) warp_solve as the last fallback — identical arithmetic to
-    the unsharded controller at every level."""
-    if warp_solve is None or config.mode != "corrected":
-        return None
-    from optical_flow_tpu.kernels.warp_lk_kernel import (
-        pyrup_warp_lk_pallas,
-        warp_lk_band,
-    )
-    from optical_flow_tpu.ops.pyramid import pyr_up_cols_first
-    from optical_flow_tpu.parallel.sharded_warp_lk import (
-        sharded_pyrup_warp_lk,
-        sharded_pyrup_warp_lk_fits,
-    )
-
-    clamp = float(config.warp_clamp)
-
-    def level_step(i, a, b, uc, vc):
-        H, W = a.shape[-2], a.shape[-1]
-        halves = uc.shape[-2] * 2 == H and uc.shape[-1] * 2 == W
-        if (
-            halves
-            and _tileable(a.shape, rows_n, cols_n, min_tile)
-            and sharded_pyrup_warp_lk_fits(a.shape, rows_n, cols_n, max_disp)
-        ):
-            return sharded_pyrup_warp_lk(
-                a, b, uc, vc, mesh, max_disp=max_disp, clamp=clamp
-            )
-        if (
-            halves
-            and H % 2 == 0
-            and W % 2 == 0
-            and warp_lk_band(H, W, max_disp, pyrup=True) is not None
-        ):
-            return pyrup_warp_lk_pallas(
-                a, b, uc, vc, max_disp=max_disp, clamp=clamp
-            )
-        upu = 2.0 * pyr_up_cols_first(uc)
-        upv = 2.0 * pyr_up_cols_first(vc)
-        wu = -jnp.clip(upu, -clamp, clamp)
-        wv = -jnp.clip(upv, -clamp, clamp)
-        du, dv = warp_solve(i, a, b, wu, wv)
-        return du + upu, dv + upv
-
-    return level_step
+    return run_pyramid(pyr1, pyr2, solve, warp, config)

@@ -1,8 +1,8 @@
 """Spatially-sharded dense Lucas–Kanade over a device mesh.
 
 Replaces the reference's row-parallel OpenMP loops (ParallelVideoPyr.cpp:182,
-SURVEY.md P2) with 2-D image tiling across chips. Each chip holds an
-(H/rows, W/cols) tile; a 2-pixel halo exchange over ICI supplies the full
+SURVEY.md P2) with 2-D image tiling across devices. Each device holds an
+(H/rows, W/cols) tile; a 2-pixel halo exchange supplies the full
 dependency window of one LK level:
 
     u(i,j) depends on image pixels [i-2 .. i+1] x [j-2 .. j+1]
@@ -20,7 +20,7 @@ path (tests/test_parallel.py).
 from __future__ import annotations
 
 from functools import partial
-from typing import Optional, Tuple
+from typing import Tuple
 
 import jax
 import jax.numpy as jnp
@@ -31,7 +31,6 @@ shard_map = jax.shard_map
 
 from optical_flow_tpu.flow.lk import lucas_kanade
 from optical_flow_tpu.parallel.mesh import AXIS_COLS, AXIS_FRAMES, AXIS_ROWS
-from optical_flow_tpu.parallel.vma_compat import vma_kwargs
 
 _HALO = 2  # gradient stencil (1 back) + 3x3 window (1 each way)
 
@@ -45,12 +44,12 @@ def _border_ring_mask(shape, row0, col0, H: int, W: int, dtype):
     return ok.astype(dtype)
 
 
-def _lk_tile(img1, img2, *, H, W, rows_n, cols_n, impl):
+def _lk_tile(img1, img2, *, H, W, rows_n, cols_n):
     from optical_flow_tpu.parallel.halo import exchange_halo
 
     e1 = exchange_halo(img1, _HALO, rows_n=rows_n, cols_n=cols_n)
     e2 = exchange_halo(img2, _HALO, rows_n=rows_n, cols_n=cols_n)
-    u, v = lucas_kanade(e1, e2, impl=impl)
+    u, v = lucas_kanade(e1, e2)
     u = u[..., _HALO:-_HALO, _HALO:-_HALO]
     v = v[..., _HALO:-_HALO, _HALO:-_HALO]
     h, w = img1.shape[-2], img1.shape[-1]
@@ -64,8 +63,6 @@ def sharded_lucas_kanade(
     img1,
     img2,
     mesh: Mesh,
-    *,
-    impl: str = "auto",
 ) -> Tuple[jnp.ndarray, jnp.ndarray]:
     """Dense LK with images tiled over mesh axes ('rows', 'cols').
 
@@ -83,16 +80,9 @@ def sharded_lucas_kanade(
 
     spec = P(*([AXIS_FRAMES] if img1.ndim == 3 else []), AXIS_ROWS, AXIS_COLS)
     fn = shard_map(
-        partial(_lk_tile, H=H, W=W, rows_n=rows_n, cols_n=cols_n, impl=impl),
+        partial(_lk_tile, H=H, W=W, rows_n=rows_n, cols_n=cols_n),
         mesh=mesh,
         in_specs=(spec, spec),
         out_specs=(spec, spec),
-        # impl='pallas'/'auto'-on-TPU runs lucas_kanade_pallas per tile, and
-        # pallas_call's out_shape carries no varying-mesh-axes annotation —
-        # the vma checker rejects it even though every output is
-        # owner-computed from owner-held inputs (halo-free stencil).
-        # Version-gated: the checker stays ON once the installed JAX
-        # accepts pallas_call outputs (parallel/vma_compat.py repro).
-        **vma_kwargs(),
     )
     return fn(img1, img2)

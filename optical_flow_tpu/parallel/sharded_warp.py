@@ -3,8 +3,8 @@
 The warp gather's reach is unbounded in principle (SURVEY.md section 7
 'hard parts'), so tiling requires bounding it: flow used for warping is
 clamped to `max_disp` (FlowConfig.warp_clamp — applied identically in the
-unsharded controller, so sharded and single-device results stay
-bit-identical for any clamp value). The halo width is then
+unsharded controller, so the tiled warp reproduces the single-device warp
+bit for bit for any clamp value). The halo width is then
 
     k = ceil(max_disp / 2) + 1      (half-flow warp + bilinear tap;
                                      shift_sep: no +1 — flow-space
@@ -17,8 +17,8 @@ and leaves fractions untouched — gather taps and arithmetic are identical
 to the unsharded remap (verified bit-exact in tests/test_parallel.py).
 
 This is the image-domain analogue of ring attention's neighbour exchange
-(SURVEY.md section 5): per level, each chip exchanges only an O(max_disp)
-strip with its mesh neighbours over ICI instead of all-gathering frames.
+(SURVEY.md section 5): per level, each device exchanges only an
+O(max_disp) strip with its mesh neighbours instead of all-gathering frames.
 """
 
 from __future__ import annotations
@@ -34,8 +34,6 @@ from jax.sharding import Mesh, PartitionSpec as P
 from optical_flow_tpu.ops.warp import (
     quantize_disp,
     remap_bilinear,
-    shift_disp_fields,
-    shift_warp_sum,
     symmetric_shift_sep_sum,
 )
 from optical_flow_tpu.parallel.halo import exchange_halo, exchange_halo_rows
@@ -51,7 +49,7 @@ def _warp_tile(img1, img2, u, v, *, k, rows_n, cols_n, quantize, impl):
     hx = u.astype(jnp.float32) / jnp.float32(2)
     hy = v.astype(jnp.float32) / jnp.float32(2)
     if impl == "shift_sep":
-        # Gather-free production tile warp: flow-space quantization
+        # Separable shift tile warp: flow-space quantization
         # (ops/warp.py quantize_disp) is position-independent, so the tile
         # computes the same displacements as the global warp with NO
         # global-coordinate plumbing; the halo width equals the tap reach
@@ -64,6 +62,8 @@ def _warp_tile(img1, img2, u, v, *, k, rows_n, cols_n, quantize, impl):
         dx_ext = exchange_halo_rows(dx, k, rows_n=rows_n, border="zero")
         return symmetric_shift_sep_sum(e1, e2, dx_ext, dy, k)
 
+    if impl != "gather":
+        raise ValueError(f"unknown tiled warp impl {impl!r}")
     # Maps are built in GLOBAL coordinates (same f32 arithmetic as the
     # unsharded warp — adding the tile offset before quantization would
     # round differently); tap indices shift to tile-local + halo AFTER
@@ -72,30 +72,9 @@ def _warp_tile(img1, img2, u, v, *, k, rows_n, cols_n, quantize, impl):
     col0 = jax.lax.axis_index(AXIS_COLS) * w
     xs = col0.astype(jnp.float32) + jnp.arange(w, dtype=jnp.float32)[None, :]
     ys = row0.astype(jnp.float32) + jnp.arange(h, dtype=jnp.float32)[:, None]
-    if impl == "gather":
-        off = (k - row0, k - col0)
-        w1 = remap_bilinear(e1, xs + hx, ys + hy, quantize=quantize, index_offset=off)
-        w2 = remap_bilinear(e2, xs - hx, ys - hy, quantize=quantize, index_offset=off)
-        return w1, w2
-
-    # Gather-free exact tile warp (VERDICT r1 item 3): the shift
-    # decomposition's reach C equals the halo width k, so the halo already
-    # ships every tap; one extra ZERO ring supplies the margin M = C+1 that
-    # shift_warp_sum expects — the outermost ring always carries an
-    # exactly-zero hat weight (|d| <= C after clamping), so zero vs
-    # neighbour data there cannot change the result, and weights/taps/sum
-    # order are the unsharded `remap_bilinear_shift`'s bit for bit
-    # (displacements from GLOBAL coordinates via shared shift_disp_fields).
-    ring = [(0, 0)] * (e1.ndim - 2) + [(1, 1), (1, 1)]
-    p1 = jnp.pad(e1, ring)
-    p2 = jnp.pad(e2, ring)
-    dtype = img1.dtype
-    dx1, dy1 = shift_disp_fields(xs + hx, ys + hy, xs, ys, k, quantize=quantize, dtype=dtype)
-    dx2, dy2 = shift_disp_fields(xs - hx, ys - hy, xs, ys, k, quantize=quantize, dtype=dtype)
-    if impl != "shift":
-        raise ValueError(f"unknown tiled warp impl {impl!r}")
-    w1 = shift_warp_sum(p1, dx1, dy1, k, separable=False)
-    w2 = shift_warp_sum(p2, dx2, dy2, k, separable=False)
+    off = (k - row0, k - col0)
+    w1 = remap_bilinear(e1, xs + hx, ys + hy, quantize=quantize, index_offset=off)
+    w2 = remap_bilinear(e2, xs - hx, ys - hy, quantize=quantize, index_offset=off)
     return w1, w2
 
 
@@ -115,15 +94,14 @@ def sharded_symmetric_warp(
     u/v MUST already be clamped to [-max_disp, max_disp] (the controller
     does this); the halo covers exactly that reach.
 
-    impl: 'gather' (exact remap on the halo tile), 'shift' (gather-free
-    static-shift decomposition — the TPU production path; bit-identical to
-    the unsharded shift warp) or 'shift_sep' (its separable O(C) form,
-    bit-identical to the unsharded shift_sep warp).
+    impl: 'gather' (exact remap on the halo tile) or 'shift_sep' (the
+    separable static-shift form); each is bit-identical to the unsharded
+    warp of the same impl.
     """
     rows_n = mesh.shape[AXIS_ROWS]
     cols_n = mesh.shape[AXIS_COLS]
     # halo = the warp's reach: half the clamped flow, +1 for coordinate
-    # fixed-point rounding slack (gather/shift); the flow-space-quantized
+    # fixed-point rounding slack (gather); the flow-space-quantized
     # shift_sep needs no slack (ops/warp.py quantize_disp)
     k = int(math.ceil(max_disp / 2.0)) + (0 if impl == "shift_sep" else 1)
     tile_h = img1.shape[-2] // rows_n

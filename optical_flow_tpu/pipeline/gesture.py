@@ -4,7 +4,7 @@ ParallelVideoPyr.cpp:845-890).
 Reference per-pixel scan: mag = sqrt(u^2 + v^2); pixels with mag >= 20 vote
 (col, row) into a centroid; detection fires when votes > 500; the centroid
 is drawn as a radius-35 circle after rescaling to original frame coords.
-On TPU the scan is two masked reductions, fused by XLA.
+On the device the scan is two masked reductions, fused by XLA.
 
 Faithfully-preserved quirks:
 - `Mat mag = u` is a header alias, so writing the magnitude CLOBBERS u

@@ -10,10 +10,10 @@ Reference chain per frame (all OpenCV, mostly uint8):
     Sobel(diff, CV_64F, dx) + Sobel(diff, CV_64F, dy)   [ksize 3, REFLECT_101]
     dilate(3x3 rect, 2 iters); erode(3x3 rect, 2 iters)
 
-TPU-native design notes:
+Design notes:
 - resize is expressed as two dense matmuls (row matrix @ image @ col matrix)
-  built from the exact OpenCV bicubic (A = -0.75) tap weights — the MXU eats
-  this; no gathers.
+  built from the exact OpenCV bicubic (A = -0.75) tap weights — matmul work, no
+  gathers; pinned to HIGHEST precision so no TF32 rounding enters.
 - blur/Sobel are separable shift-add chains that XLA fuses; in fast mode
   the blur precomposes onto the resize matrices outright.
 - morphology is separable shifted-slice max/min chains with +-inf border
@@ -22,7 +22,7 @@ TPU-native design notes:
   `reduce_window` would round-trip HBM per pass.
 - `faithful_uint8=True` reproduces OpenCV's uint8 saturating round-half-even
   arithmetic between stages (parity tests vs cv2); False keeps everything in
-  float32 — the fast TPU path, visually identical.
+  float32 — the fast path, visually identical.
 """
 
 from __future__ import annotations
@@ -187,7 +187,7 @@ def sobel3(img, dx: int, dy: int, out_dtype=jnp.float32):
 
     Separable: d/dx = smooth[1,2,1] rows x diff[-1,0,1] cols (and transposed
     for d/dy). Reference calls with (1,0) and (0,1) into CV_64F
-    (ParallelVideoPyr.cpp:809-810); f32 is the TPU default here.
+    (ParallelVideoPyr.cpp:809-810); f32 is the device default here.
     """
     x = img.astype(out_dtype)
     H, W = x.shape[-2], x.shape[-1]
@@ -223,8 +223,7 @@ def _morph3x3(x, mode: str, iterations: int):
     # runs as SEPARABLE SHIFTED-SLICE max/min chains rather than
     # lax.reduce_window: XLA fuses elementwise op chains into one loop
     # fusion but keeps each reduce_window a separate HBM round-trip
-    # (measured on v5e: 0.178 -> 0.109 ms for the 1080^2 diff chain,
-    # bit-identical)
+    # (bit-identical)
     k = 2 * iterations + 1
     r = iterations
     H, W = x.shape[-2], x.shape[-1]
@@ -278,11 +277,9 @@ def _banded_factors(n_in: int, n_out: int, ksize: int, sigma: float, tile: int):
     The operator is ~13-banded (bicubic tap spread of 4 composed with the
     (ksize)-tap blur), so the dense matmul wastes ~60x the FLOPs; tiling
     the OUTPUT axis by `tile` and slicing the input slab each tile
-    actually reads keeps MXU-friendly shapes while cutting compiled FLOPs
-    ~5-6x — measured on v5e at the flagship 720p->1080^2 shape: 145.1 ->
-    44.9 us/frame for the two-axis apply, max |err| vs the f64 oracle
-    3.5e-5 for BOTH forms (scripts/tpu_resize_experiments.py; the bf16
-    dense variant is 34 us but 0.87 absolute error — rejected).
+    actually reads keeps matmul-friendly shapes while cutting compiled
+    FLOPs ~5-6x; the banded and dense forms agree with the f64 oracle to
+    the same f32 roundoff.
 
     Returns ((nt, tile, width) per-tile weights, per-tile input starts)."""
     M = _resize_blur_matrix(n_in, n_out, ksize, sigma)
@@ -344,8 +341,7 @@ def preprocess_frame(frame_bgr, config: PreprocessConfig = PreprocessConfig()):
     In float mode resize (cubic), blur, and BT.601 gray are all LINEAR, so
     the whole head commutes and contracts: gray runs FIRST (one channel of
     work instead of three) and the separable blur folds into the resize
-    matmuls (_resize_blur_matrix) — zero marginal cost. Measured on v5e:
-    0.96 -> 0.35 ms of the 720p->1080^2 preprocess device time;
+    matmuls (_resize_blur_matrix) — zero marginal cost;
     f32-roundoff-level difference, pinned in tests. The faithful uint8
     path keeps the reference's order: its per-stage rounding/saturation
     is nonlinear and order-sensitive.

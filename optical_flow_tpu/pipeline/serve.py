@@ -2,12 +2,12 @@
 
 The reference's deployment modality is a LIVE process — an interactive
 webcam loop where the warmed-up pipeline stays resident between frames
-(/root/reference/ParallelVideoPyr.cpp:730-905). The TPU-native
-equivalent of "keep the model hot" is a serving process: jit-compiled
+(reference ParallelVideoPyr.cpp:730-905). The equivalent here of
+"keep the model hot" is a serving process: jit-compiled
 executables are expensive to build and free to reuse, so a long-running
 server that owns the device and answers frame streams over a socket
 amortizes compilation across every client. Per-connection streams check
-pipelines out of a keyed pool, so each (preset, shape, impl) traces and
+pipelines out of a keyed pool, so each (preset, shape) traces and
 compiles once for the life of the server, not once per client; a device
 lock serializes pushes (one accelerator, many clients — per-stream
 sequential state lives in the checked-out pipeline, never shared).
@@ -18,9 +18,12 @@ little-endian C-order):
   client -> server   one newline-terminated JSON handshake:
       {"v": 1, "height": H, "width": W, "channels": C,
        "preset": "fast"|"faithful", "proc_height": h, "proc_width": w,
-       "return_flow": bool, "impl": "auto"|"jnp"|"pallas"}
+       "return_flow": bool}
     (proc_* default to 256x256 — the `video` CLI default; channels
-    defaults to 3.)
+    defaults to 3.) Any other key is refused. Clients of earlier releases
+    also send "impl": "auto" or "jnp"; both name the one plain-JAX path
+    every stream runs, so they are accepted and ignored. Any other "impl"
+    (e.g. "pallas") is refused: there is no implementation to pick.
   server -> client   one JSON line {"ok": true, "pooled": bool} or
       {"ok": false, "error": "..."} followed by connection close.
 
@@ -51,7 +54,7 @@ from typing import Optional, Tuple, Union
 
 import numpy as np
 
-from optical_flow_tpu.config import FlowConfig, PreprocessConfig, VideoConfig
+from optical_flow_tpu.config import PreprocessConfig, VideoConfig
 
 PROTOCOL_VERSION = 1
 # backstop against a corrupt length prefix allocating unbounded memory
@@ -60,26 +63,19 @@ MAX_FRAME_BYTES = 256 * 1024 * 1024
 # matrices are O(dim^2) host memory)
 MAX_PROC_DIM = 4096
 _U32 = struct.Struct(">I")
+_HANDSHAKE_KEYS = frozenset(
+    {"v", "height", "width", "channels", "preset", "proc_height",
+     "proc_width", "return_flow", "impl"}
+)
+# the "impl" values earlier clients send; both mean the plain-JAX path
+_LEGACY_IMPLS = ("auto", "jnp")
 
 
-def _make_config(preset: str, proc_size: Tuple[int, int], impl: str) -> VideoConfig:
+def _make_config(preset: str, proc_size: Tuple[int, int]) -> VideoConfig:
     if preset == "fast":
-        cfg = VideoConfig.fast(size=proc_size)
-        if impl != "auto":
-            # replace() keeps every other fast-preset knob: an explicit
-            # impl must not silently drift from the preset's tuning if
-            # that tuning ever changes (ADVICE r4)
-            import dataclasses
-
-            cfg = dataclasses.replace(
-                cfg, flow=dataclasses.replace(cfg.flow, impl=impl)
-            )
-        return cfg
+        return VideoConfig.fast(size=proc_size)
     if preset == "faithful":
-        return VideoConfig(
-            preprocess=PreprocessConfig(size=proc_size),
-            flow=FlowConfig(impl=impl),
-        )
+        return VideoConfig(preprocess=PreprocessConfig(size=proc_size))
     raise ValueError(f"unknown preset {preset!r} (want 'fast' or 'faithful')")
 
 
@@ -129,6 +125,14 @@ class _StreamHandler(socketserver.StreamRequestHandler):
                 return  # clean close at handshake state
             try:
                 hs = json.loads(line)
+                unknown = set(hs) - _HANDSHAKE_KEYS
+                if unknown:
+                    raise ValueError(f"unknown handshake keys {sorted(unknown)}")
+                if hs.get("impl", "auto") not in _LEGACY_IMPLS:
+                    raise ValueError(
+                        f"impl {hs['impl']!r} is not served: every stream runs "
+                        "the one plain-JAX path"
+                    )
                 if int(hs.get("v", PROTOCOL_VERSION)) != PROTOCOL_VERSION:
                     raise ValueError(f"unsupported protocol version {hs.get('v')}")
                 height = int(hs["height"])
@@ -140,7 +144,6 @@ class _StreamHandler(socketserver.StreamRequestHandler):
                     int(hs.get("proc_width", 256)),
                 )
                 return_flow = bool(hs.get("return_flow", False))
-                impl = str(hs.get("impl", "auto"))
                 if channels not in (1, 3, 4):
                     raise ValueError(f"unsupported channel count {channels}")
                 # each dimension validated alone: negative height x
@@ -161,11 +164,11 @@ class _StreamHandler(socketserver.StreamRequestHandler):
                 frame_bytes = height * width * channels
                 if frame_bytes > MAX_FRAME_BYTES:
                     raise ValueError(f"frame size {frame_bytes} out of range")
-                cfg = _make_config(preset, proc, impl)
+                cfg = _make_config(preset, proc)
             except Exception as exc:  # malformed handshake: report and drop
                 self._send_json({"ok": False, "error": str(exc)})
                 return
-            key = (preset, height, width, channels, proc, impl)
+            key = (preset, height, width, channels, proc)
             pipe, pooled = server.pool.acquire(
                 key, lambda: server.make_pipeline(cfg)
             )
@@ -328,7 +331,6 @@ class FlowClient:
         preset: str = "fast",
         proc_size: Tuple[int, int] = (256, 256),
         return_flow: bool = False,
-        impl: str = "auto",
     ) -> dict:
         self._return_flow = return_flow
         self._proc = tuple(proc_size)  # type: ignore[assignment]
@@ -341,7 +343,6 @@ class FlowClient:
             "proc_height": proc_size[0],
             "proc_width": proc_size[1],
             "return_flow": return_flow,
-            "impl": impl,
         }
         self._sock.sendall(json.dumps(hs).encode() + b"\n")
         return self._read_json()

@@ -2,7 +2,7 @@
 ParallelVideoPyr.cpp:730-905).
 
 The reference loop is strictly sequential: capture -> preprocess -> pyramidal
-LK on (prevDiff, diff) -> gesture -> imshow. Two TPU-native execution modes:
+LK on (prevDiff, diff) -> gesture -> imshow. Two device execution modes:
 
 - streaming: one jitted step per frame pair, preserving the reference's
   sequential-state quirks (including `faithful_prev_diff`: the pyramid warp
@@ -52,6 +52,15 @@ class VideoPipeline:
     """
 
     def __init__(self, config: VideoConfig = VideoConfig(), mesh=None):
+        if config.faithful_prev_diff and config.flow.warp_impl == "auto":
+            # The fed-back prevDiff is the reference's cv2.remap output, so
+            # it takes the exact warp: the loop amplifies any sub-pixel
+            # change of the warped diff, and shift_sep's flow-space 1/32 px
+            # rounding would turn f32 roundoff (sharded vs unsharded, GPU
+            # vs CPU) into diverging streams.
+            config = dataclasses.replace(
+                config, flow=dataclasses.replace(config.flow, warp_impl="gather")
+            )
         self.config = config
         self.mesh = mesh
         self._preprocess = jax.jit(self._preprocess_impl)
@@ -119,25 +128,18 @@ class VideoPipeline:
             )
 
             u, v, _, warped_diff = sharded_coarse_to_fine_with_images(
-                prev_diff, diff, self.mesh, levels, config=self.config.flow,
-                _need_images=self.config.faithful_prev_diff,
+                prev_diff, diff, self.mesh, levels, config=self.config.flow
             )
         else:
             u, v, _, warped_diff = coarse_to_fine_with_images(
-                prev_diff, diff, levels, config=self.config.flow,
-                _need_images=self.config.faithful_prev_diff,
+                prev_diff, diff, levels, config=self.config.flow
             )
         gesture = detect_gesture(u, v, self.config.gesture)
         next_prev = warped_diff if self.config.faithful_prev_diff else diff
         return FrameResult(u, v, gesture), next_prev
 
     def _build_pyr_impl(self, diff):
-        return tuple(
-            gaussian_pyramid(
-                diff, max_pyramid_levels(diff.shape),
-                impl=self.config.flow.pyr_impl,
-            )
-        )
+        return tuple(gaussian_pyramid(diff, max_pyramid_levels(diff.shape)))
 
     def _flow_step_pyr_impl(self, prev_pyr, pyr):
         if self.mesh is not None:
@@ -164,20 +166,14 @@ class VideoPipeline:
             )
         else:
             u, v, _, _ = coarse_to_fine_with_images(
-                prev_diffs, diffs, levels, config=self.config.flow,
-                _need_images=False,
+                prev_diffs, diffs, levels, config=self.config.flow
             )
         return FrameResult(u, v, detect_gesture(u, v, self.config.gesture))
 
     def _batch_flow_pyr_impl(self, diffs):
         # one pyramid per diff; the N-2 pairs are batch SLICES of the same
         # level arrays (each frame's pyramid serves both its pairs for free)
-        pyr = tuple(
-            gaussian_pyramid(
-                diffs, max_pyramid_levels(diffs.shape),
-                impl=self.config.flow.pyr_impl,
-            )
-        )
+        pyr = tuple(gaussian_pyramid(diffs, max_pyramid_levels(diffs.shape)))
         prev = tuple(p[:-1] for p in pyr)
         cur = tuple(p[1:] for p in pyr)
         if self.mesh is not None:

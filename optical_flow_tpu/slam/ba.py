@@ -5,7 +5,7 @@ Problem: cameras c = (axis-angle rotation r, translation t) in R^6, points
 X in R^3, pinhole observations obs = (cam_idx, pt_idx, uv). Minimize
 sum |pi(R_c X_p + t_c) - uv|^2 with pi(x, y, z) = f (x/z, y/z).
 
-TPU-native structure:
+Device-side structure:
 - residuals and Jacobians for ALL observations in one batch (vmap of a
   closed-form 2x6 / 2x3 Jacobian — no autodiff in the loop, everything
   fuses);
@@ -18,7 +18,7 @@ TPU-native structure:
   rhs, and one `psum` over the mesh produces the global camera system —
   back-substitution for the point updates is local. This is the
   distributed-BA pattern of SURVEY.md section 5 (Schur complement over
-  psum); DCN/ICI traffic per iteration is O((6C)^2), independent of the
+  psum); the collective traffic per iteration is O((6C)^2), independent of the
   number of points.
 
 Gauss-Newton with Levenberg damping, fixed iteration count (jit-stable);
@@ -219,8 +219,8 @@ def _solve_cameras(Hcc, bc, S_partial, rhs_partial, lam, fixed=None,
     precondition: symmetric Jacobi scaling D^-1/2 S D^-1/2 before the
     solve — required for f32 visual-inertial systems, whose rows mix
     pixel-, rad- and m/s-unit residuals with 1e6-spread information
-    weights (measured on TPU: the unpreconditioned f32 solve walks the
-    metric scale to 0.85; preconditioned matches the f64 result)."""
+    weights (an unpreconditioned f32 solve walks the metric scale far
+    from 1; preconditioned matches the f64 result)."""
     C, D = Hcc.shape[0], Hcc.shape[-1]
     block = Hcc + lam * jnp.eye(D, dtype=Hcc.dtype)[None]
 
@@ -309,12 +309,11 @@ def _bundle_adjust_jit(
         prob, msr = _gn_step(prob, l, C, P, table, fixed=fixed)
         return (prob._replace(weight=base_w), l), msr
 
-    # full-f32 matmul passes: the TPU default runs f32 einsums/solves
-    # with bf16 multiplies — harmless for image ops, but the normal
+    # full-f32 matmul passes: the GPU default runs f32 einsums/solves
+    # in TF32 (10-bit mantissa) — harmless for image ops, but the normal
     # equations SQUARE the conditioning and the Schur complement
-    # cancels; measured on v5e, the default precision walks VI-BA's
-    # metric scale to 0.85 while this line recovers the f64 answer.
-    # No-op on CPU (always full precision).
+    # cancels, so reduced-precision products walk VI-BA's metric scale
+    # away from the f64 answer. No-op on CPU (always full precision).
     with jax.default_matmul_precision("float32"):
         (out, _), hist = lax.scan(body, (problem, lam), None, length=iters)
     return out, hist
@@ -447,7 +446,7 @@ def sharded_bundle_adjust(
             pr, msr = _gn_step(pr, l, C, P_local, table, psum_axes=axes)
             return (pr._replace(weight=weight), l), lax.psum(msr, axes) / n
 
-        # full-f32 matmul passes on TPU (see _bundle_adjust_jit)
+        # full-f32 matmul passes, no TF32 (see _bundle_adjust_jit)
         with jax.default_matmul_precision("float32"):
             (out, _), hist = lax.scan(body, (prob, lamv), None, length=iters)
         return out.cams, out.points, hist

@@ -14,11 +14,11 @@ track's birth position. NCC against the anchor is then a dot product, so
 
   * track VERIFICATION is one batched row-wise dot per keyframe
     (`ncc_scores`), and
-  * lost-track RE-ASSOCIATION is one (N, D) @ (D, M) matmul — MXU work —
+  * lost-track RE-ASSOCIATION is one (N, D) @ (D, M) matmul —
     plus mutual-nearest and Lowe-ratio gating (`match_descriptors`).
 
 Patch sampling reuses the sparse-LK batched bilinear sampler
-(track/sparse_lk._sample_patches), so the TPU path stays gather-light and
+(track/sparse_lk._sample_patches), so the device path stays gather-light and
 static-shape; callers bucket K with slam/incremental's _pad64 to bound
 per-shape compiles on long videos.
 """

@@ -7,9 +7,9 @@ chain, loop closures from place recognition + geometric verification) are
 edges. Gauss-Newton on SE(3) with the first pose fixed distributes the
 accumulated drift around every cycle.
 
-TPU-first shape: all residuals/Jacobians evaluate as one batched jit
+Device-first shape: all residuals/Jacobians evaluate as one batched jit
 (edges are arrays, not Python objects), the normal equations are a dense
-6(N-1) system solved on the MXU — for the hundreds-of-keyframes scale
+6(N-1) system solved as one dense solve — for the hundreds-of-keyframes scale
 this targets, dense beats sparse bookkeeping.
 
 Pose convention: T_i = (R_i, t_i) maps WORLD -> CAMERA i (X_c = R X_w + t),

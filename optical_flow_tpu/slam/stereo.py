@@ -86,10 +86,9 @@ def dense_disparity(left, right, *, config=None, max_dy: float = 1.0):
     """DENSE sub-pixel disparity from the flagship pyramidal-LK engine.
 
     On a rectified rig, left→right optical flow IS the disparity field:
-    u = −disparity, v ≈ 0. This reuses the whole TPU dense-flow stack —
-    fused Pallas kernels, shift warps, streaming pyramids — so dense
-    depth runs at dense-flow speed (~2000 fps/chip at 1080², bench.py)
-    instead of the per-corner sparse path.
+    u = −disparity, v ≈ 0. This reuses the whole dense-flow stack —
+    clamped warps, streaming pyramids — so dense depth runs at
+    dense-flow speed instead of the per-corner sparse path.
 
     Returns (disparity (H, W) float32, valid (H, W) bool). `valid`
     rejects pixels whose vertical flow exceeds max_dy (off-scanline ⇒

@@ -31,7 +31,7 @@ in pixels, so the defaults assume sigma_R ~ 1e-3 rad, sigma_v ~ 1e-2 m/s,
 sigma_p ~ 1e-3 m for a ~1 px pixel sigma — pass `imu_weight` to match a
 real sensor's noise model.
 
-TPU-native structure (same skeleton as `slam/ba.py`): all reprojection
+Device-side structure (same skeleton as `slam/ba.py`): all reprojection
 residuals/Jacobians in one vmap batch, the point blocks eliminated by the
 sparse Schur complement, and the IMU factors — which never touch points —
 assembled directly into the REDUCED camera system as (i, i), (i, i+1),
@@ -322,7 +322,7 @@ def _vi_bundle_adjust_jit(problem: VIBAProblem, table, fixed_dofs, iters, lam,
         prob, msr_vis, msr_imu = _gn_step_vi(prob, l, C, P, table, fixed_dofs)
         return (prob._replace(weight=base_w), l), jnp.stack([msr_vis, msr_imu])
 
-    # full-f32 matmul passes: the TPU default's bf16 multiplies corrupt
+    # full-f32 matmul passes: the GPU default's TF32 multiplies corrupt
     # the Schur cancellation + mixed-unit solve (see ba._bundle_adjust_jit)
     with jax.default_matmul_precision("float32"):
         (out, _), hist = lax.scan(body, (problem, lam), None, length=iters)
@@ -392,8 +392,8 @@ def sharded_vi_bundle_adjust(
     LOCAL to each shard's point slice). The visual camera system is
     psum-reduced; the IMU factors — O(C) data, replicated — are assembled
     identically on every device after the reduction, so state updates are
-    identical everywhere and point updates stay local. ICI traffic per
-    iteration is O((9C)^2), independent of the number of points."""
+    identical everywhere and point updates stay local. Collective traffic
+    per iteration is O((9C)^2), independent of the number of points."""
     import numpy as np
     from jax.sharding import PartitionSpec as P_
 
@@ -453,7 +453,7 @@ def sharded_vi_bundle_adjust(
             )
             return (pr, l), jnp.stack([lax.psum(msr_vis, axes) / n, msr_imu])
 
-        # full-f32 matmul passes on TPU (see ba._bundle_adjust_jit)
+        # full-f32 matmul passes, no TF32 (see ba._bundle_adjust_jit)
         with jax.default_matmul_precision("float32"):
             (out, _), hist = lax.scan(body, (prob, lamv), None, length=iters)
         return out.states, out.points, hist

@@ -2,7 +2,7 @@
 OpticalFlowDemo.cpp:30-276 — OpenCV goodFeaturesToTrack +
 calcOpticalFlowPyrLK demos).
 
-TPU-native design: everything is static-shape and batched —
+Device-side design: everything is static-shape and batched —
 - good_features_to_track returns a fixed-K corner array plus a validity
   mask (top_k over the min-eigenvalue map, max-pool non-max suppression
   instead of OpenCV's serial greedy minDistance pass),

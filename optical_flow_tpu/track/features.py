@@ -8,7 +8,7 @@ Pipeline (blockSize=3, Sobel aperture=3, like OpenCV's defaults):
   threshold at quality_level * max(lambda_min) -> 3x3 non-max suppression ->
   minDistance suppression -> top-K by score.
 
-TPU-native deviation (documented): OpenCV enforces minDistance with a
+Deviation (documented): OpenCV enforces minDistance with a
 serial greedy scan over score-sorted corners; here minDistance is enforced
 by a (2r+1) max-pool dominance test — a corner survives iff it is the
 maximum within its minDistance neighbourhood. This is parallel, jit-stable,

@@ -1,10 +1,10 @@
 """Pose estimation from sparse feature tracks (north-star extension,
 SURVEY.md section 7.7: LK -> tracks -> pose -> distributed BA).
 
-TPU-native RANSAC: instead of the classic sequential hypothesize-verify
+Batched RANSAC: instead of the classic sequential hypothesize-verify
 loop, ALL hypotheses are drawn, solved, and scored as one batch —
 `n_hypotheses` minimal 4-point sets are sampled with a counter-based PRNG,
-each yields a homography by normalized DLT (batched SVD on the MXU), and
+each yields a homography by normalized DLT (batched SVD), and
 inlier counting is one (n_hypotheses, K) broadcast. Fixed shapes, no
 data-dependent control flow; argmax picks the winner, refined by a final
 DLT on its inliers (weighted, fixed-shape).

@@ -2,7 +2,7 @@
 semantics; reference C16, of.cpp:55: 31x31 window, 3 pyramid levels,
 20-iteration / 0.03-eps termination).
 
-TPU-native structure:
+Structure:
 - all K features tracked together: patch sampling is one batched bilinear
   gather (K, w+2, w+2); the iteration is a batched 2x2 solve;
 - the Newton iterations run a FIXED 20 steps with a per-feature
@@ -35,19 +35,6 @@ class SparseLKConfig:
     iters: int = 20  # TermCriteria COUNT (of.cpp:44)
     eps: float = 0.03  # TermCriteria EPS
     min_eig_threshold: float = 1e-4  # cv2 minEigThreshold default
-    # 'gather': bilinear-gather the moving window every Newton iteration
-    #   (20 gather rounds per level — fine on CPU, slow on TPU where
-    #   gathers cost per-element scalar loads);
-    # 'shift': ONE integer region gather per level, then every iteration
-    #   samples inside the pre-gathered region via separable hat-weighted
-    #   static shifts (the dense shift-warp trick at patch scale) — the
-    #   TPU production path. Window wander within a level is bounded by
-    #   `margin` px (beyond it the sample clamps to the region edge; a
-    #   feature wandering a full half-window in one level is lost to
-    #   cv2 too);
-    # 'auto': 'shift' on TPU, 'gather' elsewhere.
-    impl: str = "auto"
-    margin: int = 0  # 'shift' wander bound per level; 0 = win // 2
 
 
 def _sample_patches(img, centers, half: int, extra: int = 1):
@@ -96,37 +83,7 @@ def _scharr(patch):
     return ix, iy
 
 
-def _extract_regions(img, oy, ox, P: int):
-    """Integer (K, P, P) regions at per-feature origins, clamped at the
-    image border (one gather round — the 'shift' path's only gather)."""
-    H, W = img.shape
-    offs = jnp.arange(P, dtype=jnp.int32)
-    ys = jnp.clip(oy[:, None] + offs[None, :], 0, H - 1)  # (K, P)
-    xs = jnp.clip(ox[:, None] + offs[None, :], 0, W - 1)
-    return img[ys[:, :, None], xs[:, None, :]]
-
-
-def _shift_sample(R, py, px, half: int, S: int):
-    """Sample (w, w) windows from pre-gathered (K, P, P) regions at
-    per-feature float positions, WITHOUT gathers: the bilinear weight is
-    a hat over integer shifts (max(0, 1-|p - s|), the dense shift-warp
-    decomposition at patch scale), applied as a separable sum over the
-    S statically-sliced region views per axis. Exact bilinear sampling
-    for p in [0, S-1]; the caller clamps p into that range."""
-    w = 2 * half + 1
-    K, P, _ = R.shape
-    T = jnp.zeros((K, w, P), R.dtype)
-    for s in range(S):
-        wy = jnp.maximum(0.0, 1.0 - jnp.abs(py - s))[:, None, None]
-        T = T + wy * R[:, s : s + w, :]
-    out = jnp.zeros((K, w, w), R.dtype)
-    for s in range(S):
-        wx = jnp.maximum(0.0, 1.0 - jnp.abs(px - s))[:, None, None]
-        out = out + wx * T[:, :, s : s + w]
-    return out
-
-
-def _track_level(img1, img2, pts, guess, cfg: SparseLKConfig, impl: str):
+def _track_level(img1, img2, pts, guess, cfg: SparseLKConfig):
     """One pyramid level of iterative LK for all K features."""
     half = cfg.win // 2
     H, W = img1.shape
@@ -144,24 +101,8 @@ def _track_level(img1, img2, pts, guess, cfg: SparseLKConfig, impl: str):
     ok_eig = (min_eig / win_area) >= cfg.min_eig_threshold
     safe_det = jnp.where(det != 0, det, 1.0)
 
-    if impl == "shift":
-        M = cfg.margin or half
-        P = cfg.win + 2 * M + 2
-        S = 2 * M + 2  # integer shifts covering p in [0, 2M+1]
-        p0 = pts + guess
-        oy = jnp.floor(p0[:, 1]).astype(jnp.int32) - half - M
-        ox = jnp.floor(p0[:, 0]).astype(jnp.int32) - half - M
-        R2 = _extract_regions(img2, oy, ox, P)
-        org = jnp.stack([ox, oy], axis=-1).astype(jnp.float32)
-
     def sample2(d):
-        p2 = pts + d
-        if impl != "shift":
-            return _sample_patches(img2, p2, half, extra=0)
-        # in-region window top-left position; the clamp is the wander
-        # bound (start position sits at frac + M, mid-range)
-        q = jnp.clip(p2 - org - half, 0.0, float(S - 1))
-        return _shift_sample(R2, q[:, 1], q[:, 0], half, S)
+        return _sample_patches(img2, pts + d, half, extra=0)
 
     def body(_, carry):
         d, live = carry
@@ -206,9 +147,8 @@ def build_tracking_pyramid(img, config: Optional[SparseLKConfig] = None):
     )
 
 
-@partial(jax.jit, static_argnames=("cfg", "impl"))
-def _track(img1, img2, pts, cfg: SparseLKConfig, impl: str,
-           pyr1=None, pyr2=None):
+@partial(jax.jit, static_argnames=("cfg",))
+def _track(img1, img2, pts, cfg: SparseLKConfig, pyr1=None, pyr2=None):
     levels = cfg.max_level + 1
     if pyr1 is None:
         pyr1 = gaussian_pyramid(img1, levels)
@@ -223,7 +163,7 @@ def _track(img1, img2, pts, cfg: SparseLKConfig, impl: str,
         pl_ = pts / scale
         d, ok = _track_level(
             pyr1[lvl].astype(jnp.float32), pyr2[lvl].astype(jnp.float32),
-            pl_, d, cfg, impl,
+            pl_, d, cfg,
         )
         status = status & ok
         if lvl > 0:
@@ -255,13 +195,8 @@ def track_features(
     Returns (new_points (K,2), status (K,) bool, err (K,) float32).
     """
     cfg = config or SparseLKConfig()
-    impl = cfg.impl
-    if impl == "auto":
-        impl = "shift" if jax.default_backend() == "tpu" else "gather"
-    if impl not in ("gather", "shift"):
-        raise ValueError(f"impl must be 'gather', 'shift' or 'auto', got {impl!r}")
     pts = jnp.asarray(points, jnp.float32)
     return _track(
         jnp.asarray(img1, jnp.float32), jnp.asarray(img2, jnp.float32), pts,
-        cfg, impl, pyr1=pyr1, pyr2=pyr2,
+        cfg, pyr1=pyr1, pyr2=pyr2,
     )

@@ -23,9 +23,6 @@ def bgr_to_gray_u8(bgr: np.ndarray) -> np.ndarray:
 
 
 def imread_gray(path) -> np.ndarray:
-    from optical_flow_tpu.utils.compat import warm_compile_client
-
-    warm_compile_client()  # before cv2's codec libraries load (see compat.py)
     try:
         import cv2
 

@@ -55,7 +55,7 @@ def main():
     from optical_flow_tpu.utils.checkpoint import load_state, save_state
 
     cfg = VideoConfig(
-        preprocess=PreprocessConfig(size=(64, 64)), flow=FlowConfig(impl="jnp")
+        preprocess=PreprocessConfig(size=(64, 64)), flow=FlowConfig()
     )
     pipe = VideoPipeline(cfg)
     ckpt = os.path.join(args.workdir, "state.npz")

@@ -67,7 +67,7 @@ def main() -> None:
     img2 = make_global_batch(local[2:], mesh)
     assert img1.shape == (num_procs * 2, 64, 128)
 
-    from optical_flow_tpu.flow.lk import lucas_kanade_jnp
+    from optical_flow_tpu.flow.lk import lucas_kanade
     from optical_flow_tpu.parallel.sharded_lk import sharded_lucas_kanade
 
     u, v = sharded_lucas_kanade(img1, img2, mesh)
@@ -80,7 +80,7 @@ def main() -> None:
     # host checks its addressable shards — bit-identity across the
     # process boundary, the same claim the 1-process tests make.
     oracle = {
-        b: lucas_kanade_jnp(jnp.asarray(local[li]), jnp.asarray(local[li + 2]))
+        b: lucas_kanade(jnp.asarray(local[li]), jnp.asarray(local[li + 2]))
         for li, b in enumerate(my_rows)
     }
     checked = 0
@@ -123,7 +123,7 @@ def main() -> None:
         for li in range(2):
             a = jnp.asarray(all_frames[p + num_procs * li])
             bb = jnp.asarray(all_frames[p + num_procs * (li + 2)])
-            acc.append(np.mean(np.asarray(lucas_kanade_jnp(a, bb)[0])))
+            acc.append(np.mean(np.asarray(lucas_kanade(a, bb)[0])))
     assert abs(gm - float(np.mean(acc))) < 1e-9, (gm, float(np.mean(acc)))
 
     # ---- the FULL sharded pyramid with tiled warps across the process
@@ -149,7 +149,7 @@ def main() -> None:
     sh = NamedSharding(mesh_sp, P("rows", "cols"))
     ga = jax.make_array_from_callback((64, 128), sh, lambda idx: ia[idx])
     gb = jax.make_array_from_callback((64, 128), sh, lambda idx: ib[idx])
-    cfg = FlowConfig(impl="jnp", warp_clamp=4.0, warp_impl="shift_sep")
+    cfg = FlowConfig(warp_clamp=4.0, warp_impl="shift_sep")
     # jit: eager ops cannot touch non-fully-addressable global arrays
     u2, v2 = jax.jit(
         lambda a, b: sharded_coarse_to_fine(

@@ -36,7 +36,7 @@ def _frames(n, seed=0):
 
 def test_pipeline_resume_matches_uninterrupted(tmp_path):
     cfg = VideoConfig(
-        preprocess=PreprocessConfig(size=(64, 64)), flow=FlowConfig(impl="jnp")
+        preprocess=PreprocessConfig(size=(64, 64)), flow=FlowConfig()
     )
     frames = _frames(7)
 

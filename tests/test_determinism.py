@@ -21,7 +21,7 @@ from optical_flow_tpu.track import good_features_to_track, track_features
 def test_dense_flow_deterministic(rng):
     a = jnp.asarray(rng.rand(96, 128))
     b = jnp.asarray(rng.rand(96, 128))
-    cfg = FlowConfig(impl="jnp")
+    cfg = FlowConfig()
     u1, v1 = coarse_to_fine(a, b, 3, config=cfg)
     u2, v2 = coarse_to_fine(a, b, 3, config=cfg)
     np.testing.assert_array_equal(np.asarray(u1), np.asarray(u2))
@@ -36,8 +36,8 @@ def test_sharded_flow_deterministic(rng):
     mesh = flow_mesh(frames=2, rows=2, cols=2)
     a = rng.rand(64, 128)
     b = rng.rand(64, 128)
-    u1, v1 = sharded_lucas_kanade(a, b, mesh, impl="jnp")
-    u2, v2 = sharded_lucas_kanade(a, b, mesh, impl="jnp")
+    u1, v1 = sharded_lucas_kanade(a, b, mesh)
+    u2, v2 = sharded_lucas_kanade(a, b, mesh)
     np.testing.assert_array_equal(np.asarray(u1), np.asarray(u2))
     np.testing.assert_array_equal(np.asarray(v1), np.asarray(v2))
 

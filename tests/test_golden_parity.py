@@ -8,7 +8,7 @@ both on table1/table2 cropped to 640x448 and scaled by 1/255.
 
 In float64 the framework matches the goldens at the text-file precision
 (%lf keeps 6 decimals -> max error 5e-7), i.e. at the reference's own 1e-6
-regression threshold. In float32 (the TPU production dtype) the mean
+regression threshold. In float32 (the production dtype on the device) the mean
 endpoint error must stay within the 0.1px budget (BASELINE.md).
 """
 
@@ -17,7 +17,7 @@ import pytest
 
 import jax
 
-from optical_flow_tpu.flow.lk import lucas_kanade_jnp
+from optical_flow_tpu.flow.lk import lucas_kanade
 from optical_flow_tpu.flow.coarse_to_fine import coarse_to_fine
 from optical_flow_tpu.utils.goldens import load_mat
 
@@ -42,14 +42,14 @@ def _epe(u, v, gu, gv):
 class TestSingleLevelGolden:
     def test_f64_exact(self, table_pair, goldens_single):
         img1, img2 = table_pair
-        u, v = jax.jit(lucas_kanade_jnp)(img1, img2)
+        u, v = jax.jit(lucas_kanade)(img1, img2)
         gu, gv = goldens_single
         assert np.abs(np.asarray(u) - gu).max() <= GOLDEN_TOL
         assert np.abs(np.asarray(v) - gv).max() <= GOLDEN_TOL
 
     def test_f32_epe_budget(self, table_pair, goldens_single):
         img1, img2 = table_pair
-        u, v = jax.jit(lucas_kanade_jnp)(img1.astype(np.float32), img2.astype(np.float32))
+        u, v = jax.jit(lucas_kanade)(img1.astype(np.float32), img2.astype(np.float32))
         gu, gv = goldens_single
         assert _epe(u, v, gu, gv) <= 0.1
 

@@ -106,7 +106,7 @@ class TestPyramid:
 
     @pytest.mark.parametrize("shape", [(5, 6), (7, 10), (14, 20), (3, 9, 13)])
     def test_pyr_up_stuffed_bit_identical(self, rng, shape):
-        # the interleave-free (TPU) form must match the stack form exactly
+        # the interleave-free (zero-stuffed) form must match the stack form exactly
         from optical_flow_tpu.ops.pyramid import _pyr_up_stack, _pyr_up_stuffed
 
         m = np.asarray(rng.rand(*shape) * 2 - 1, dtype=np.float32)
@@ -200,80 +200,63 @@ class TestReviewRegressions:
             max_pyramid_levels((0, 640))
 
     def test_invalid_impl_rejected(self):
+        """LK has one implementation: asking for another is an error."""
         from optical_flow_tpu.flow.lk import lucas_kanade
 
         img = jnp.ones((8, 8))
-        with pytest.raises(ValueError, match="impl"):
+        with pytest.raises(TypeError, match="impl"):
             lucas_kanade(img, img, impl="xla")
 
 
 class TestShiftWarp:
-    def test_shift_matches_gather(self):
-        from optical_flow_tpu.ops.warp import remap_bilinear, remap_bilinear_shift
-
-        rng = np.random.RandomState(3)
-        H, W = 48, 64
-        src = jnp.asarray(rng.rand(H, W).astype(np.float32))
-        xs = np.arange(W, dtype=np.float32)[None, :]
-        ys = np.arange(H, dtype=np.float32)[:, None]
-        dx = np.clip(rng.randn(H, W) * 2, -4, 4).astype(np.float32)
-        dy = np.clip(rng.randn(H, W) * 2, -4, 4).astype(np.float32)
-        mx, my = jnp.asarray(xs + dx), jnp.asarray(ys + dy)
-        for q in (True, False):
-            a = np.asarray(remap_bilinear(src, mx, my, quantize=q))
-            b = np.asarray(remap_bilinear_shift(src, mx, my, 5, quantize=q))
-            np.testing.assert_allclose(a, b, atol=1e-5)
-
-    def test_symmetric_warp_shift_impl(self):
-        from optical_flow_tpu.ops.warp import symmetric_warp
-
-        rng = np.random.RandomState(4)
-        img1 = jnp.asarray(rng.rand(40, 56).astype(np.float32))
-        img2 = jnp.asarray(rng.rand(40, 56).astype(np.float32))
-        u = jnp.asarray(np.clip(rng.randn(40, 56) * 3, -6, 6).astype(np.float32))
-        v = jnp.asarray(np.clip(rng.randn(40, 56) * 3, -6, 6).astype(np.float32))
-        g1, g2 = symmetric_warp(img1, img2, u, v)
-        s1, s2 = symmetric_warp(img1, img2, u, v, impl="shift", max_disp=4)
-        np.testing.assert_allclose(np.asarray(g1), np.asarray(s1), atol=1e-5)
-        np.testing.assert_allclose(np.asarray(g2), np.asarray(s2), atol=1e-5)
-
-    def test_pyramid_with_shift_warp_matches_gather(self):
-        from optical_flow_tpu.config import FlowConfig
-        from optical_flow_tpu.flow.coarse_to_fine import coarse_to_fine
-
-        rng = np.random.RandomState(5)
-        a = jnp.asarray(rng.rand(64, 64).astype(np.float32))
-        b = jnp.asarray(np.roll(np.asarray(a), 2, axis=1))
-        ug, vg = coarse_to_fine(a, b, 3, config=FlowConfig(
-            impl="jnp", warp_clamp=8.0, warp_impl="gather"))
-        us, vs = coarse_to_fine(a, b, 3, config=FlowConfig(
-            impl="jnp", warp_clamp=8.0, warp_impl="shift"))
-        np.testing.assert_allclose(np.asarray(ug), np.asarray(us), atol=1e-4)
-        np.testing.assert_allclose(np.asarray(vg), np.asarray(vs), atol=1e-4)
-
     def test_shift_requires_clamp(self):
         from optical_flow_tpu.config import FlowConfig
         from optical_flow_tpu.flow.coarse_to_fine import coarse_to_fine
 
         a = jnp.ones((16, 16))
         with pytest.raises(ValueError, match="warp_clamp"):
-            coarse_to_fine(a, a, 2, config=FlowConfig(impl="jnp", warp_impl="shift"))
+            coarse_to_fine(a, a, 2, config=FlowConfig(warp_impl="shift_sep"))
+
+    def test_retired_forms_refused(self):
+        """Only the gather and separable shift warps exist: the exact
+        non-separable 'shift' form lost on the card and was removed."""
+        from optical_flow_tpu.config import FlowConfig
+        from optical_flow_tpu.flow.coarse_to_fine import resolve_warp_impl
+        from optical_flow_tpu.ops.warp import symmetric_warp
+
+        with pytest.raises(ValueError, match="warp_impl"):
+            resolve_warp_impl(FlowConfig(warp_clamp=8.0, warp_impl="shift"))
+        a = jnp.ones((16, 16))
+        with pytest.raises(ValueError, match="impl"):
+            symmetric_warp(a, a, a, a, impl="shift", max_disp=4)
 
 
 class TestShiftSepWarp:
-    """Pins the separable shift warp — the PRODUCTION TPU warp
-    (resolve_warp_impl 'auto' -> 'shift_sep' on TPU, VideoConfig.fast()).
-    The separable form is an approximation (exact only where dx is
-    constant along y, ops/warp.py); these tests measure and bound its
-    error vs the gather oracle and pin its end-to-end accuracy."""
+    """Pins the separable shift warp (warp_impl='shift_sep', the clamped
+    warp_impl='auto' form). The separable form is an approximation
+    (exact only where dx is constant along y, ops/warp.py); these tests
+    measure and bound its error vs the gather oracle and pin its
+    end-to-end accuracy."""
 
     def _maps(self, H, W, dx, dy):
         xs = np.arange(W, dtype=np.float32)[None, :]
         ys = np.arange(H, dtype=np.float32)[:, None]
         return jnp.asarray(xs + dx), jnp.asarray(ys + dy)
 
+    @staticmethod
+    def _shift_sep(src, dx, dy, max_disp):
+        """src warped by (dx, dy) through the symmetric shift_sep warp
+        (its first frame samples at +u/2)."""
+        from optical_flow_tpu.ops.warp import symmetric_warp
+
+        u = jnp.asarray(2 * dx)
+        v = jnp.asarray(2 * dy)
+        return np.asarray(
+            symmetric_warp(src, src, u, v, impl="shift_sep", max_disp=max_disp)[0]
+        )
+
     def test_exact_where_dx_constant_along_y(self):
-        from optical_flow_tpu.ops.warp import remap_bilinear, remap_bilinear_shift
+        from optical_flow_tpu.ops.warp import remap_bilinear
 
         rng = np.random.RandomState(11)
         H, W = 64, 96
@@ -284,13 +267,13 @@ class TestShiftSepWarp:
         dy = np.clip(rng.randn(H, W) * 2, -4, 4).astype(np.float32)
         mx, my = self._maps(H, W, dx, dy)
         a = np.asarray(remap_bilinear(src, mx, my))
-        b = np.asarray(remap_bilinear_shift(src, mx, my, 5, separable=True))
+        b = self._shift_sep(src, dx, dy, 5)
         np.testing.assert_allclose(a, b, atol=1e-6)
 
     def test_error_bound_smooth_flow(self):
         """Window-averaged (LK-like) flow on a worst-case noise image:
         the measured bound documented in ops/warp.py."""
-        from optical_flow_tpu.ops.warp import remap_bilinear, remap_bilinear_shift
+        from optical_flow_tpu.ops.warp import remap_bilinear
 
         rng = np.random.RandomState(7)
         H, W = 96, 128
@@ -306,7 +289,7 @@ class TestShiftSepWarp:
         dy = box_smooth(np.clip(rng.randn(H, W) * 3, -4, 4)).astype(np.float32)
         mx, my = self._maps(H, W, dx, dy)
         a = np.asarray(remap_bilinear(src, mx, my))
-        b = np.asarray(remap_bilinear_shift(src, mx, my, 5, separable=True))
+        b = self._shift_sep(src, dx, dy, 5)
         err = np.abs(a - b)
         assert err.max() < 0.30, err.max()  # measured 0.21
         assert err.mean() < 0.02, err.mean()  # measured 0.007
@@ -316,7 +299,7 @@ class TestShiftSepWarp:
         that maximally violates the separability assumption. The error is
         bounded (intensity units, [0,1] noise image) and documented; the
         pyramid's residual solves absorb it (see the end-to-end test)."""
-        from optical_flow_tpu.ops.warp import remap_bilinear, remap_bilinear_shift
+        from optical_flow_tpu.ops.warp import remap_bilinear
 
         rng = np.random.RandomState(9)
         H, W = 96, 128
@@ -325,14 +308,14 @@ class TestShiftSepWarp:
         dy = np.full((H, W), 0.5, np.float32)
         mx, my = self._maps(H, W, dx, dy)
         a = np.asarray(remap_bilinear(src, mx, my))
-        b = np.asarray(remap_bilinear_shift(src, mx, my, 5, separable=True))
+        b = self._shift_sep(src, dx, dy, 5)
         err = np.abs(a - b)
         assert err.max() < 0.8, err.max()  # measured 0.47
         assert err.mean() < 0.2, err.mean()  # measured 0.12
 
-    def test_pyramid_shift_sep_matches_exact_shift(self):
+    def test_pyramid_shift_sep_matches_gather(self):
         """Corrected-mode pyramid (the production config) with the
-        separable warp agrees with the exact shift form end to end."""
+        separable warp agrees with the exact gather warp end to end."""
         from optical_flow_tpu.config import FlowConfig
         from optical_flow_tpu.flow.coarse_to_fine import coarse_to_fine
 
@@ -340,8 +323,8 @@ class TestShiftSepWarp:
         base = rng.rand(96, 128).astype(np.float32)
         a = jnp.asarray(base)
         b = jnp.asarray(np.roll(base, (1, 2), axis=(0, 1)))
-        kw = dict(impl="jnp", mode="corrected", warp_clamp=8.0, level_iters=2)
-        ue, ve = coarse_to_fine(a, b, 3, config=FlowConfig(warp_impl="shift", **kw))
+        kw = dict(mode="corrected", warp_clamp=8.0, level_iters=2)
+        ue, ve = coarse_to_fine(a, b, 3, config=FlowConfig(warp_impl="gather", **kw))
         us, vs = coarse_to_fine(a, b, 3, config=FlowConfig(warp_impl="shift_sep", **kw))
         # interior only: borders carry the zero-fill warp transients
         # (random-noise images are worst-case content; measured ~0.012 px)
@@ -363,7 +346,7 @@ class TestShiftSepWarp:
         img1, _ = load_table_pair()
         a = jnp.asarray(img1.astype(np.float32))
         b = jnp.asarray(np.roll(np.asarray(a), (2, 3), axis=(0, 1)))
-        kw = dict(impl="jnp", mode="corrected", warp_clamp=8.0, level_iters=2)
+        kw = dict(mode="corrected", warp_clamp=8.0, level_iters=2)
         sl = np.s_[32:-32, 32:-32]
 
         def epe(warp_impl):
@@ -383,7 +366,7 @@ class TestShiftSepWarp:
 
 class TestPyrUpColsFirst:
     """The corrected-mode production upsample: same taps as pyr_up with
-    the column pass first (half the TPU lane-interleave volume)."""
+    the column pass first."""
 
     def test_matches_cv2(self, rng):
         import cv2
@@ -408,113 +391,43 @@ class TestPyrUpColsFirst:
 class TestWarpFuzz:
     def test_fuzz_shift_matches_gather_random_geometry(self):
         """Property fuzz over random shapes (odd/even, tiny), clamps and
-        quantize modes: the static-shift warp decomposition must match
-        the gather remap within float noise everywhere — the equivalence
-        every shift/tile/fused path ultimately rests on."""
-        from optical_flow_tpu.ops.warp import remap_bilinear, remap_bilinear_shift
+        quantize modes: where the separable shift warp is exact (dx
+        constant along y, displacements on the 1/32 px grid so flow- and
+        coordinate-space quantization agree) it must match the gather
+        remap within float noise everywhere — the equivalence the
+        gather-free and tiled warps rest on."""
+        from optical_flow_tpu.ops.warp import remap_bilinear, symmetric_warp
 
         for seed in range(12):
             rng = np.random.RandomState(100 + seed)
             H = int(rng.randint(9, 70))
             W = int(rng.randint(9, 70))
             clamp = float(rng.choice([2.0, 3.0, 4.0, 6.0, 8.0]))
-            C = int(np.ceil(clamp)) + 1  # reach + rounding slack
+            C = int(np.ceil(clamp))
             q = bool(rng.randint(2))
             src = jnp.asarray(rng.rand(H, W).astype(np.float32) * 255)
             xs = np.arange(W, dtype=np.float32)[None, :]
             ys = np.arange(H, dtype=np.float32)[:, None]
-            dx = np.clip(rng.randn(H, W) * clamp, -clamp, clamp).astype(np.float32)
-            dy = np.clip(rng.randn(H, W) * clamp, -clamp, clamp).astype(np.float32)
+            dx = np.tile(np.clip(rng.randn(1, W) * clamp, -clamp, clamp), (H, 1))
+            dy = np.clip(rng.randn(H, W) * clamp, -clamp, clamp)
+            dx = (np.rint(dx * 32) / 32).astype(np.float32)
+            dy = (np.rint(dy * 32) / 32).astype(np.float32)
             mx, my = jnp.asarray(xs + dx), jnp.asarray(ys + dy)
             a = np.asarray(remap_bilinear(src, mx, my, quantize=q))
-            b = np.asarray(remap_bilinear_shift(src, mx, my, C, quantize=q))
+            b = np.asarray(symmetric_warp(
+                src, src, jnp.asarray(2 * dx), jnp.asarray(2 * dy),
+                quantize=q, impl="shift_sep", max_disp=C,
+            )[0])
             np.testing.assert_allclose(
                 a, b, atol=2e-4, err_msg=f"seed={seed} {H}x{W} clamp={clamp} q={q}"
             )
 
 
-class TestPyrDownMXU:
-    def test_mxu_impl_matches_poly(self):
-        """pyr_down(impl='mxu') — column decimation as a banded matmul on
-        the MXU — must match the polyphase form at f32 roundoff (the
-        HIGHEST-precision products are exact for the binary-fraction K5
-        taps; only the accumulation order differs) across even and odd
-        shapes."""
-        from optical_flow_tpu.ops.pyramid import pyr_down
-
-        rng = np.random.RandomState(6)
-        for shape in ((2, 256, 256), (1, 135, 271), (33, 17)):
-            x = jnp.asarray((rng.rand(*shape) * 255).astype(np.float32))
-            a = np.asarray(pyr_down(x))
-            b = np.asarray(pyr_down(x, impl="mxu"))
-            assert a.shape == b.shape
-            np.testing.assert_allclose(a, b, atol=2e-3, rtol=1e-6)
-
-    def test_gaussian_pyramid_impl_plumbs(self):
-        from optical_flow_tpu.ops.pyramid import gaussian_pyramid
-
-        rng = np.random.RandomState(7)
-        x = jnp.asarray((rng.rand(64, 64) * 255).astype(np.float32))
-        pa = gaussian_pyramid(x, 3)
-        pb = gaussian_pyramid(x, 3, impl="mxu")
-        for a, b in zip(pa, pb):
-            np.testing.assert_allclose(np.asarray(a), np.asarray(b), atol=2e-3)
-
+class TestPyrDownImpl:
     def test_bad_impl_rejected(self):
+        """pyr_down has one form (polyphase): asking for another is an
+        error."""
         from optical_flow_tpu.ops.pyramid import pyr_down
 
-        with pytest.raises(ValueError, match="impl"):
-            pyr_down(jnp.ones((8, 8)), impl="gpu")
-
-    def test_production_config_pyr_impl_end_to_end(self):
-        """FlowConfig(pyr_impl='mxu') — the production-preset pyramid
-        builder — must leave the corrected-mode flow within f32 roundoff
-        of the bit-pinned polyphase build end to end."""
-        from optical_flow_tpu.config import FlowConfig
-        from optical_flow_tpu.flow.coarse_to_fine import coarse_to_fine
-
-        rng = np.random.RandomState(21)
-        base = (rng.rand(96, 128) * 255).astype(np.float32)
-        a = jnp.asarray(base)
-        b = jnp.asarray(np.roll(base, (1, 2), axis=(0, 1)))
-        kw = dict(impl="jnp", mode="corrected", warp_clamp=8.0,
-                  warp_impl="auto", levels=3)
-        up, vp = coarse_to_fine(a, b, 3, config=FlowConfig(**kw))
-        um, vm = coarse_to_fine(
-            a, b, 3, config=FlowConfig(pyr_impl="mxu", **kw)
-        )
-        sl = np.s_[8:-8, 8:-8]
-        du = np.abs(np.asarray(up)[sl] - np.asarray(um)[sl])
-        dv = np.abs(np.asarray(vp)[sl] - np.asarray(vm)[sl])
-        # the solve divides by near-zero determinants in texture-poor
-        # pixels, so pin the bulk (median), not the max
-        assert np.median(du) < 1e-3 and np.median(dv) < 1e-3, (
-            np.median(du), np.median(dv)
-        )
-
-
-def test_pyr_down_pallas_small_shape_fallback_is_poly():
-    """pyr_down(impl='pallas') silently falls back to 'poly' numerics for
-    levels with H < 4 or W < 2 (reflect halos don't exist there), so one
-    gaussian_pyramid can mix accumulation orders across levels. Pin the
-    boundary (ADVICE r3): below it the pallas entry point must be
-    BIT-identical to poly — the fallback really is poly, and the mixed-
-    numerics seam is exactly at (H >= 4 and W >= 2)."""
-    r = np.random.RandomState(7)
-    for shape in ((3, 9), (2, 9), (3, 1), (5, 1), (1, 1)):
-        m = jnp.asarray(r.rand(*shape).astype(np.float32) * 255.0)
-        got = np.asarray(pyr_down(m, impl="pallas"))
-        want = np.asarray(pyr_down(m, impl="poly"))
-        np.testing.assert_array_equal(got, want)
-
-
-def test_pyr_down_auto_resolves_poly_off_tpu():
-    """pyr_impl='auto' (the production presets) must be BIT-identical to
-    the pinned poly path off-TPU — the Mosaic kernel has no CPU lowering
-    and CPU keeps the parity semantics."""
-    from optical_flow_tpu.ops.pyramid import pyr_down
-
-    x = jnp.asarray(np.random.RandomState(11).rand(64, 96).astype(np.float32))
-    np.testing.assert_array_equal(
-        np.asarray(pyr_down(x, impl="auto")), np.asarray(pyr_down(x))
-    )
+        with pytest.raises(TypeError, match="impl"):
+            pyr_down(jnp.ones((8, 8)), impl="mxu")

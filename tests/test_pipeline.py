@@ -138,7 +138,7 @@ def test_gesture_detection_synthetic():
 def _small_video_config():
     return VideoConfig(
         preprocess=PreprocessConfig(size=(96, 96)),
-        flow=FlowConfig(impl="jnp"),
+        flow=FlowConfig(),
     )
 
 
@@ -166,7 +166,7 @@ def test_video_pipeline_streaming():
 def test_video_pipeline_batched_matches_streaming():
     cfg = VideoConfig(
         preprocess=PreprocessConfig(size=(96, 96)),
-        flow=FlowConfig(impl="jnp"),
+        flow=FlowConfig(),
         faithful_prev_diff=False,
     )
     frames = _synthetic_frames(6)
@@ -204,7 +204,7 @@ def test_batched_pipeline_with_mesh():
     mesh = flow_mesh(frames=2, rows=2, cols=2)
     cfg = VideoConfig(
         preprocess=PreprocessConfig(size=(96, 96)),
-        flow=FlowConfig(impl="jnp", warp_clamp=8.0),
+        flow=FlowConfig(warp_clamp=8.0),
         faithful_prev_diff=False,
     )
     frames = np.stack(
@@ -234,9 +234,10 @@ def test_streaming_faithful_prev_diff_with_mesh_matches_unsharded():
     from optical_flow_tpu.parallel import flow_mesh
 
     mesh = flow_mesh(frames=1, rows=2, cols=2)
+    # the default warp_impl='auto': what the README's spatial tiling gives
     cfg = VideoConfig(
         preprocess=PreprocessConfig(size=(96, 96)),
-        flow=FlowConfig(impl="jnp", warp_clamp=8.0),
+        flow=FlowConfig(warp_clamp=8.0),
         faithful_prev_diff=True,
     )
     r = np.random.RandomState(7)
@@ -263,7 +264,7 @@ def test_fast_preset_runs():
 
 def test_fast_mode_gray_first_commutes():
     """Fast-mode preprocess runs BT.601 gray BEFORE resize+blur (one
-    channel of MXU/VPU work instead of three); all three ops are linear,
+    channel of work instead of three); all three ops are linear,
     so the output must match the reference order at f32 roundoff."""
     from optical_flow_tpu.pipeline.preprocess import preprocess_frame
 
@@ -325,7 +326,7 @@ def test_streaming_mesh_reuses_pyramids_and_matches_unsharded():
     ]
     cfg = VideoConfig(
         preprocess=PreprocessConfig(size=(64, 64), faithful_uint8=False),
-        flow=FlowConfig(impl="jnp", levels=3, warp_clamp=4.0),
+        flow=FlowConfig(levels=3, warp_clamp=4.0),
         faithful_prev_diff=False,
     )
     plain = VideoPipeline(cfg)
@@ -345,7 +346,7 @@ def test_run_chunked_matches_streaming():
     including across a chunk boundary and a short per-frame tail."""
     cfg = VideoConfig(
         preprocess=PreprocessConfig(size=(96, 96)),
-        flow=FlowConfig(impl="jnp"),
+        flow=FlowConfig(),
         faithful_prev_diff=False,
     )
     frames = _synthetic_frames(13)  # 2 full chunks of 5 + a 3-frame tail
@@ -376,7 +377,7 @@ def test_run_chunked_exact_multiple_and_short_input():
     chunk inputs both produce the full expected result count."""
     cfg = VideoConfig(
         preprocess=PreprocessConfig(size=(64, 64)),
-        flow=FlowConfig(impl="jnp"),
+        flow=FlowConfig(),
         faithful_prev_diff=False,
     )
     frames = _synthetic_frames(8, h=80, w=100)
@@ -547,7 +548,7 @@ def test_run_chunked_leaves_resumable_state():
     re-entered warm-up, dropping two results at the seam)."""
     cfg = VideoConfig(
         preprocess=PreprocessConfig(size=(96, 96)),
-        flow=FlowConfig(impl="jnp"),
+        flow=FlowConfig(),
         faithful_prev_diff=False,
     )
     frames = _synthetic_frames(10, h=80, w=100)

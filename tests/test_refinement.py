@@ -35,9 +35,9 @@ def _epe(u, v, dx, dy, m=24):
 
 def test_level_iters_one_unchanged():
     img1, img2 = _scene((1.3, -0.6))
-    u0, v0 = coarse_to_fine(jnp.asarray(img1), jnp.asarray(img2), 3, config=FlowConfig(impl="jnp"))
+    u0, v0 = coarse_to_fine(jnp.asarray(img1), jnp.asarray(img2), 3, config=FlowConfig())
     u1, v1 = coarse_to_fine(
-        jnp.asarray(img1), jnp.asarray(img2), 3, config=FlowConfig(impl="jnp", level_iters=1)
+        jnp.asarray(img1), jnp.asarray(img2), 3, config=FlowConfig(level_iters=1)
     )
     np.testing.assert_array_equal(np.asarray(u0), np.asarray(u1))
     np.testing.assert_array_equal(np.asarray(v0), np.asarray(v1))
@@ -51,11 +51,11 @@ def test_corrected_mode_recovers_displacement():
     img1, img2 = _scene((dx, dy), seed=2)
     u, v = coarse_to_fine(
         jnp.asarray(img1), jnp.asarray(img2), 3,
-        config=FlowConfig(impl="jnp", mode="corrected"),
+        config=FlowConfig(mode="corrected"),
     )
     assert _epe(u, v, dx, dy) < 0.15
     u_r, v_r = coarse_to_fine(
-        jnp.asarray(img1), jnp.asarray(img2), 3, config=FlowConfig(impl="jnp")
+        jnp.asarray(img1), jnp.asarray(img2), 3, config=FlowConfig()
     )
     assert _epe(u_r, v_r, dx, dy) > 1.0  # reference mode: not displacement
 
@@ -67,7 +67,7 @@ def test_level_iters_improves_large_motion():
     for iters in (1, 3):
         u, v = coarse_to_fine(
             jnp.asarray(img1), jnp.asarray(img2), 3,
-            config=FlowConfig(impl="jnp", mode="corrected", level_iters=iters),
+            config=FlowConfig(mode="corrected", level_iters=iters),
         )
         errs[iters] = _epe(u, v, dx, dy)
     assert errs[3] < errs[1], errs
@@ -76,7 +76,7 @@ def test_level_iters_improves_large_motion():
 def test_invalid_mode_rejected():
     img = jnp.ones((16, 16))
     with pytest.raises(ValueError, match="mode"):
-        coarse_to_fine(img, img, 2, config=FlowConfig(impl="jnp", mode="fancy"))
+        coarse_to_fine(img, img, 2, config=FlowConfig(mode="fancy"))
 
 
 def test_level_iters_requires_corrected_mode():
@@ -84,5 +84,5 @@ def test_level_iters_requires_corrected_mode():
     with pytest.raises(ValueError, match="corrected"):
         coarse_to_fine(
             jnp.asarray(img1), jnp.asarray(img2), 2,
-            config=FlowConfig(impl="jnp", level_iters=2),  # mode='reference'
+            config=FlowConfig(level_iters=2),  # mode='reference'
         )

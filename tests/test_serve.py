@@ -1,6 +1,6 @@
 """Serving-layer tests (pipeline/serve.py).
 
-The server is the TPU-native deployment shape of the reference's live
+The server is the deployment shape of the reference's live
 webcam loop (ParallelVideoPyr.cpp:730-905): a resident process keeps the
 compiled pipeline hot and answers frame streams over a socket. Tests run
 the real wire protocol against an in-process threaded server on the CPU
@@ -136,6 +136,40 @@ def test_bad_handshake_is_reported(server):
 
     resp = json.loads(line)
     assert resp["ok"] is False and "error" in resp
+
+
+@pytest.mark.parametrize("impl", ["pallas", "mosaic"])
+def test_handshake_naming_an_impl_is_refused(server, impl):
+    """Each stage has one path: a handshake that asks for another
+    implementation gets an error reply, not a pipeline."""
+    import json
+
+    hs = {"v": 1, "height": H, "width": W, "proc_height": PROC[0],
+          "proc_width": PROC[1], "impl": impl}
+    with socket.create_connection(server.address, timeout=30) as s:
+        s.sendall(json.dumps(hs).encode() + b"\n")
+        resp = json.loads(s.makefile("rb").readline())
+    assert resp["ok"] is False and "impl" in resp["error"]
+
+
+@pytest.mark.parametrize("impl", ["auto", "jnp"])
+def test_earlier_client_handshake_still_connects(server, impl):
+    """Clients of earlier protocol-1 releases always sent an "impl" key
+    ("auto" by default): it names the plain path, so the stream opens,
+    serves a frame and ends as usual."""
+    import json
+
+    hs = {"v": 1, "height": H, "width": W, "proc_height": PROC[0],
+          "proc_width": PROC[1], "return_flow": False, "impl": impl}
+    frame = _frames(1)[0]
+    with socket.create_connection(server.address, timeout=120) as s:
+        f = s.makefile("rb")
+        s.sendall(json.dumps(hs).encode() + b"\n")
+        assert json.loads(f.readline())["ok"] is True
+        s.sendall(struct.pack(">I", frame.nbytes) + frame.tobytes())
+        assert json.loads(f.readline()) == {"frame": 0, "warmup": True}
+        s.sendall(struct.pack(">I", 0))
+        assert json.loads(f.readline()) == {"end": True, "frames": 1}
 
 
 def test_wrong_frame_length_is_reported(server):

@@ -102,44 +102,6 @@ def test_track_border_and_out_of_bounds_status():
     assert status[3]  # within the coarse level's reach: tracked, like cv2
 
 
-def test_sparse_lk_shift_impl_matches_gather():
-    """The 'shift' sparse-LK path (one integer region gather per level,
-    then hat-weighted static-shift sampling inside the region every
-    Newton iteration — the TPU production path, where per-iteration
-    gathers cost per-element scalar loads) must agree with the 'gather'
-    path: same status, endpoints within float-contraction noise."""
-    cv2 = pytest.importorskip("cv2")
-    from optical_flow_tpu.track.sparse_lk import SparseLKConfig, track_features
-
-    rng = np.random.RandomState(5)
-    h, w = 320, 416
-    base = cv2.resize(
-        rng.rand(80, 104).astype(np.float32), (w, h),
-        interpolation=cv2.INTER_CUBIC,
-    )
-    base = (255 * (base - base.min()) / np.ptp(base)).astype(np.uint8)
-    xs, ys = np.meshgrid(np.arange(w, dtype=np.float32),
-                         np.arange(h, dtype=np.float32))
-    depth = np.clip(
-        4.0 + 6.0 * cv2.resize(rng.rand(10, 13).astype(np.float32), (w, h),
-                               interpolation=cv2.INTER_CUBIC), 3.0, 12.0
-    )
-    disp = 400.0 * 0.10 / depth  # up to ~13 px true motion
-    img2 = cv2.remap(base, xs + disp, ys, cv2.INTER_LINEAR,
-                     borderMode=cv2.BORDER_REFLECT_101)
-    pts = np.stack(
-        [rng.uniform(20, w - 20, 150), rng.uniform(20, h - 20, 150)], axis=1
-    ).astype(np.float32)
-
-    pg, sg, _ = track_features(base, img2, pts, SparseLKConfig(impl="gather"))
-    ps, ss, _ = track_features(base, img2, pts, SparseLKConfig(impl="shift"))
-    pg, sg, ps, ss = map(np.asarray, (pg, sg, ps, ss))
-    np.testing.assert_array_equal(sg, ss)
-    d = np.linalg.norm(pg - ps, axis=1)[sg & ss]
-    assert np.median(d) < 1e-5
-    assert d.max() < 1e-3, d.max()
-
-
 def test_homography_from_minimal_four_points():
     """K=4 exact correspondences must recover the homography (round-5
     review: the reduced SVD's vt[-1] was not the null vector for an

@@ -11,7 +11,6 @@ solve lets each keyframe's bias follow the walk and recovers."""
 import numpy as np
 import pytest
 
-cv2 = pytest.importorskip("cv2")
 jnp = pytest.importorskip("jax.numpy")
 
 from optical_flow_tpu.slam.imu import (
@@ -114,6 +113,7 @@ def test_bias_states_recover_drifting_gyro_bias():
     """On a log whose gyro bias DRIFTS, the frozen-bias refinement
     measurably degrades while the bias-state solve recovers the
     trajectory AND tracks the per-keyframe bias walk."""
+    pytest.importorskip("cv2")  # refine_with_imu needs cv2
     sc = _make_scene()
     s_true = 3.0
     bg0 = np.asarray([0.01, -0.008, 0.012])
@@ -161,6 +161,7 @@ def test_bias_states_noop_on_clean_log():
     """Regression guard: with constant (well-estimated) biases, the
     bias-state solve matches the frozen-bias result and its solved bias
     deltas stay near zero."""
+    pytest.importorskip("cv2")  # refine_with_imu needs cv2
     sc = _make_scene()
     s_true = 2.0
     bg = np.asarray([0.01, -0.008, 0.012])
